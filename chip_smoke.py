@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (written for an
-H100, sm_90a): builds the SAD kernels from ``steroscopic_hardware_tpu_torch/
-csrc``, holds them to their plain torch versions, and drives the live depth
-server in-process at 1920x1080.
+H100, sm_90a): builds the SAD and SGM kernels from
+``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
+versions, and drives the live depth server in-process at 1920x1080 with
+both engines.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -9,24 +10,34 @@ Phases, one line each; the first that fails ends the run with a non-zero
 exit code:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions and
      the kernel build time;
-  2. kernel == plain on the card, exact, at 1080p and ragged shapes, a
+  2. SAD kernel == plain on the card, exact, at 1080p and ragged shapes, a
      4-frame batch, and sad_lr with and without costs;
+  2s. SGM kernel == plain on the card: sgm_aggregate in its three storage
+     tiers (fractional penalties in float32), sgm_transpose_add with and
+     without the addend, sgm_epilogue with and without subpixel, at 1080p
+     d64 and d256 and a ragged 37x53 d16; integers exact, floats within
+     1e-5 (max abs error printed);
   3. ground truth: a 1080p textured pair with a known piecewise-constant
-     shift field; the kernels must recover it on >= 90% of the pixels
+     shift field; the SAD kernels must recover it on >= 90% of the pixels
      farther than maxD + h from any image or region edge;
+  3s. the same for SGM at d64 (margin maxD + 8), and sgm_disparity's fused
+     epilogue (the entry point of sgm_epilogue) equal to the unfused one;
   4. the server (``__main__.build_app``) serves the pair: ``/stream/out``
      equals the plain version before and after ``/update-params`` and with
      ``--lr-check``, and the launch counters show every served batch went
      through the kernels;
+  4s. the same with ``--backend sgm``, with and without ``--lr-check``,
+     each before and after a retune to maxDisparity 128;
   5. kernel and plain times at 1080p (CUDA events, median of 20 after 3
-     warm-ups).
+     warm-ups), SAD and each SGM stage, beside each kernel's bound.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
-printing anything; it imports nothing of JAX.
+printing anything; it imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -40,11 +51,25 @@ import torch
 
 H, W = 1080, 1920
 SEED = 20261016
-SOURCE = "steroscopic_hardware_tpu_torch/csrc/sad.cu"
+CSRC = "steroscopic_hardware_tpu_torch/csrc/"
+SOURCE = {"sad_wta": CSRC + "sad.cu", "sad_lr": CSRC + "sad.cu",
+          "sgm_aggregate": CSRC + "sgm.cu",
+          "sgm_transpose_add": CSRC + "sgm.cu",
+          "sgm_epilogue": CSRC + "sgm.cu"}
 REPLACES = {
     "sad_wta": "steroscopic_hardware_tpu/ops/sad_pallas.py:121",
     "sad_lr": "steroscopic_hardware_tpu/ops/sad_pallas.py:427",
+    "sgm_aggregate": "steroscopic_hardware_tpu/ops/sgm.py:172",
+    "sgm_transpose_add": "steroscopic_hardware_tpu/ops/sgm.py:415",
+    "sgm_epilogue": "steroscopic_hardware_tpu/ops/sgm.py:550",
 }
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s; int32
+# 132 SMs x 64 lanes x 1.98 GHz.
+MEM_BPS = 3.35e12
+F32_OPS = 67e12
+I32_OPS = 132 * 64 * 1.98e9
+SGM_TOL = 1e-5  # float maps, kernel vs plain (both round as torch does)
 
 
 def fail(msg: str):
@@ -334,6 +359,299 @@ def phase_times(card):
     return out
 
 
+def _free():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _err(got, want):
+    """Max abs difference; shapes and dtypes must agree."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"kernel gave {tuple(got.shape)} {got.dtype}, plain "
+             f"{tuple(want.shape)} {want.dtype}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_sgm_exact():
+    """SGM kernels against their plain versions on the card."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(SEED + 3)
+    errs = {"sgm_aggregate": 0.0, "sgm_transpose_add": 0.0,
+            "sgm_epilogue": 0.0}
+    results = []
+
+    def check(name, what, got, want, is_float):
+        torch.cuda.synchronize()
+        e = _err(got, want)
+        errs[name] = max(errs[name], e)
+        if e > (SGM_TOL if is_float else 0.0):
+            fail(f"{name} {what}: max abs error {e} against plain")
+        results.append(f"{name} {what}: {e}")
+
+    def vol(shape, high):
+        return torch.from_numpy(
+            rng.integers(0, high, shape, dtype=np.uint8)).cuda()
+
+    u8, bf16, f32 = torch.uint8, torch.bfloat16, torch.float32
+    tiers = [(u8, u8, (1.0, 8.0)), (bf16, u8, (1.0, 8.0)),
+             (bf16, bf16, (1.0, 8.0)), (u8, bf16, (1.0, 8.0)),
+             (u8, f32, (0.7, 5.3)), (bf16, f32, (0.7, 5.3))]
+    for D, h, w in ((65, H, W), (257, H, W), (17, 37, 53)):
+        tag = f"{h}x{w} d{D - 1}"
+        # B3 on both frames: vertical (D, H, W) and horizontal (D, W, H)
+        for shape in ((D, h, w), (D, w, h)):
+            cost = vol(shape, 25)
+            for ind, outd, P in tiers:
+                c = cost.to(ind)
+                got = sgm.aggregate_axis(c, *P, out_dtype=outd)
+                want = sgm.aggregate_axis_plain(c, *P, out_dtype=outd)
+                check("sgm_aggregate",
+                      f"{tuple(shape)} {ind}->{outd} P{P}", got, want,
+                      outd == f32)
+                del c, got, want
+            del cost
+            _free()
+        aT = vol((D, w, h), 25)
+        check("sgm_transpose_add", f"{tag} u8->bf16",
+              sgm.transpose_add(aT, out_dtype=bf16),
+              sgm.transpose_add_plain(aT, out_dtype=bf16), False)
+        for dt in (bf16, f32):
+            a = vol((D, w, h), 120).to(dt)
+            b = vol((D, h, w), 120).to(dt)
+            check("sgm_transpose_add", f"{tag} {dt}+b->f32",
+                  sgm.transpose_add(a, b, out_dtype=f32),
+                  sgm.transpose_add_plain(a, b, out_dtype=f32), False)
+            del a, b
+        del aT
+        _free()
+        for dt in (u8, bf16, f32):
+            agg_v = vol((D, h, w), 120).to(dt)
+            agg_ht = vol((D, w, h), 120).to(dt)
+            for sub in (False, True):
+                check("sgm_epilogue", f"{tag} {dt} subpixel={sub}",
+                      sgm.sgm_epilogue(agg_v, agg_ht, subpixel=sub),
+                      sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=sub),
+                      sub)
+            del agg_v, agg_ht
+            _free()
+    say(f"phase 2s ok: SGM kernel vs plain, max abs error per case "
+        f"({len(results)} cases; {'; '.join(results)})")
+    return errs
+
+
+def phase_sgm_truth(left, right, truth, edges, maxd=64):
+    """SGM recovers the shift field; the fused epilogue (sgm_epilogue's
+    entry point) equals the unfused chain. Returns the launch counts of
+    the fused run."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    margin = maxd + 8
+    ys = np.arange(H)[:, None]
+    xs = np.arange(W)[None, :]
+    mask = ((np.min(np.abs(ys - edges[None, :]), axis=1, keepdims=True)
+             > margin) & (xs > margin) & (W - 1 - xs > margin))
+    L, R = to_cuda(left, right)
+    unfused = sgm.sgm_disparity(L, R, max_disparity=maxd)
+    _kernels.reset_launches()
+    fused = sgm.sgm_disparity(L, R, max_disparity=maxd, epilogue="fused")
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    if launches["sgm_epilogue"] < 1:
+        fail(f"sgm_disparity(epilogue='fused') launched {launches}")
+    err = _err(fused, unfused)
+    if err != 0.0:
+        fail(f"fused != unfused at 1080p d{maxd}: max abs error {err}")
+    disp = unfused.cpu().numpy()
+    rate = float((np.abs(disp - truth) < 0.5)[mask].mean())
+    if rate < 0.90:
+        fail(f"SGM recovers the shift field on {rate:.4f} of "
+             f"{int(mask.sum())} pixels, < 0.90")
+    say(f"phase 3s ok: SGM d{maxd} within 0.5 px of the known shift field "
+        f"on {rate:.6f} of {int(mask.sum())} pixels away from edges; fused "
+        f"== unfused exactly; fused run launches {launches}")
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_chain():
+    """Points the SGM wrappers at their plain versions, so the serving
+    chain runs without any kernel (the reference maps)."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    saved = sgm.aggregate_axis, sgm.transpose_add, sgm.sgm_epilogue
+    sgm.aggregate_axis = (
+        lambda c, P1, P2, *, out_dtype: sgm.aggregate_axis_plain(
+            c, P1, P2, out_dtype=out_dtype))
+    sgm.transpose_add = sgm.transpose_add_plain
+    sgm.sgm_epilogue = sgm.sgm_epilogue_plain
+    try:
+        yield
+    finally:
+        sgm.aggregate_axis, sgm.transpose_add, sgm.sgm_epilogue = saved
+
+
+def phase_sgm_serve(left, right):
+    """``--backend sgm`` serves /stream/out equal to the plain chain, before
+    and after /update-params, with and without --lr-check."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.io.png import write_png
+    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
+
+    L, R = to_cuda(left, right)
+    want = {}
+    with _plain_chain():
+        for maxd, lr in ((64, False), (128, False), (64, True), (128, True)):
+            want[maxd, lr] = sgm_one(L, R, max_disparity=maxd, p1=1.0,
+                                     p2=8.0, subpixel=True, lr=lr,
+                                     threshold=1.0).cpu().numpy()
+    _free()
+
+    def expect(base, key, what):
+        got = _served_out(base)
+        if got.shape != want[key].shape or not np.array_equal(got, want[key]):
+            n = (int((got != want[key]).sum())
+                 if got.shape == want[key].shape else -1)
+            fail(f"--backend sgm /stream/out {what}: {n} pixels differ "
+                 "from the plain chain")
+
+    lines = []
+
+    def retune(base, lr):
+        req = urllib.request.Request(
+            base + "/update-params", data=b"blockSize=7&maxDisparity=128",
+            method="POST",
+            headers={"Content-Type": "application/x-www-form-urlencoded"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            if json.load(r) != {"blockSize": 7, "maxDisparity": 128}:
+                fail("/update-params did not echo the new parameters")
+        _wait_frames(base, _metrics(base)["frames"] + 17)
+        expect(base, (128, lr), f"after /update-params d128, lr={lr}")
+
+    def run(base):
+        expect(base, (64, False), "at d64")
+        retune(base, False)
+        lines.append("== plain chain at d64 and after /update-params d128")
+
+    def lr_run(base):
+        expect(base, (64, True), "--lr-check at d64")
+        retune(base, True)
+        lines.append("== plain LR-checked chain with --lr-check at d64 and "
+                     "after /update-params d128")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lp, rp = os.path.join(tmp, "left.png"), os.path.join(tmp, "right.png")
+        write_png(lp, left)
+        write_png(rp, right)
+        argv = ["--left", lp, "--right", rp, "--fps", "60", "--no-open",
+                "--device", "cuda", "--port", "0", "--backend", "sgm"]
+        _kernels.reset_launches()
+        m1 = _serve(argv, run)
+        m2 = _serve(argv + ["--lr-check"], lr_run)
+        launches = dict(_kernels.launches)
+    frames = m1["frames"] + m2["frames"]
+    # per served frame: two aggregations and two transpose-adds
+    if not (launches["sgm_aggregate"] >= 2 * frames > 0
+            and launches["sgm_transpose_add"] >= 2 * frames):
+        fail(f"launch counters {launches} below 2 x {frames} served frames")
+    for tag, m in (("sgm", m1), ("sgm lr-check", m2)):
+        lines.append(
+            f"{tag}: {m['frames']} frames in {m['batches']} batches, fps "
+            f"{m['fps']}, lat_serve_p50 {m.get('lat_serve_p50')} ms, "
+            f"lat_serve_p95 {m.get('lat_serve_p95')} ms")
+    say(f"phase 4s ok: served 1080p /stream/out {'; '.join(lines)}; "
+        f"launches {launches}")
+    return launches
+
+
+def _bound(bytes_moved, ops, op_rate):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes = bytes_moved / MEM_BPS * 1e3
+    t_ops = ops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_sgm_times(card, maxd=64):
+    """Kernel, plain and bound per SGM stage of the 1080p d64 chain."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(SEED + 4)
+    D = maxd + 1
+    V = D * H * W
+    u8, bf16, f32 = torch.uint8, torch.bfloat16, torch.float32
+    size = {u8: 1, bf16: 2, f32: 4}
+    cost_t = torch.from_numpy(
+        rng.integers(0, 25, (D, W, H), dtype=np.uint8)).cuda()
+    cost = sgm.transpose_add(cost_t, out_dtype=bf16)
+    agg_v = sgm.aggregate_axis(cost, 1.0, 8.0, out_dtype=bf16)
+    agg_ht = sgm.aggregate_axis(cost_t, 1.0, 8.0, out_dtype=bf16)
+    agg_v8 = sgm.aggregate_axis(cost, 1.0, 8.0, out_dtype=u8)
+    agg_ht8 = sgm.aggregate_axis(cost_t, 1.0, 8.0, out_dtype=u8)
+    # per element and direction: min, min, add, min, add, min, add, sub
+    agg_ops = 2 * 8 * V
+    stages = [
+        ("sgm_transpose_add", "cost u8->bf16",
+         lambda: sgm.transpose_add(cost_t, out_dtype=bf16),
+         lambda: sgm.transpose_add_plain(cost_t, out_dtype=bf16),
+         V * (1 + 2), 0, None),
+        ("sgm_aggregate", "vertical bf16->bf16",
+         lambda: sgm.aggregate_axis(cost, 1.0, 8.0, out_dtype=bf16),
+         lambda: sgm.aggregate_axis_plain(cost, 1.0, 8.0, out_dtype=bf16),
+         V * (2 + 2), agg_ops, None),
+        ("sgm_aggregate", "horizontal u8->bf16",
+         lambda: sgm.aggregate_axis(cost_t, 1.0, 8.0, out_dtype=bf16),
+         lambda: sgm.aggregate_axis_plain(cost_t, 1.0, 8.0, out_dtype=bf16),
+         V * (1 + 2), agg_ops, None),
+        ("sgm_transpose_add", "summed volume bf16+bf16->bf16",
+         lambda: sgm.transpose_add(agg_ht, agg_v, out_dtype=bf16),
+         lambda: sgm.transpose_add_plain(agg_ht, agg_v, out_dtype=bf16),
+         V * (2 + 2 + 2), V,
+         lambda: torch.add(agg_v, agg_ht.transpose(1, 2))),
+        ("sgm_aggregate", "fused path, vertical bf16->u8",
+         lambda: sgm.aggregate_axis(cost, 1.0, 8.0, out_dtype=u8),
+         lambda: sgm.aggregate_axis_plain(cost, 1.0, 8.0, out_dtype=u8),
+         V * (2 + 1), agg_ops, None),
+        ("sgm_aggregate", "fused path, horizontal u8->u8",
+         lambda: sgm.aggregate_axis(cost_t, 1.0, 8.0, out_dtype=u8),
+         lambda: sgm.aggregate_axis_plain(cost_t, 1.0, 8.0, out_dtype=u8),
+         V * (1 + 1), agg_ops, None),
+        # per element: add, compare, and the running-state selects
+        ("sgm_epilogue", "u8 x2 -> f32 subpixel",
+         lambda: sgm.sgm_epilogue(agg_v8, agg_ht8, subpixel=True),
+         lambda: sgm.sgm_epilogue_plain(agg_v8, agg_ht8, subpixel=True),
+         V * (1 + 1) + H * W * size[f32], 3 * V, None),
+    ]
+    out = []
+    for name, what, kernel, plain, nbytes, ops, library in stages:
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+        library_ms = _time_ms(library) if library is not None else None
+        bound_ms, bound_by = _bound(nbytes, ops, F32_OPS)
+        out.append({"name": name, "stage": what, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
+        say(f"phase 5s: {name} {what} 1080p d{maxd}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB), library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} "
+            f"({card})")
+        _free()
+    say("phase 5s ok")
+    return out
+
+
+def sad_bound(name, maxd=64):
+    """(bound_ms, bound_by) of one 1080p frame: two uint8 images in, the
+    uint8 map (sad_wta) or two int32 maps (sad_lr) out; about 6 int32
+    operations per pixel and disparity with sliding window sums, twice
+    that for the two sweeps of sad_lr."""
+    px = H * W
+    if name == "sad_wta":
+        return _bound(3 * px, 6 * px * (maxd + 1), I32_OPS)
+    return _bound(2 * px + 8 * px, 12 * px * (maxd + 1), I32_OPS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -341,18 +659,40 @@ def main() -> int:
         return 1
     card = phase_build()
     errs = phase_exact()
+    sgm_errs = phase_sgm_exact()
     rng = np.random.default_rng(SEED + 2)
     left, right, truth, edges = truth_pair(rng)
     phase_truth(left, right, truth, edges, block=7, maxd=64)
+    fused_launches = phase_sgm_truth(left, right, truth, edges)
     launches = phase_serve(left, right)
+    sgm_launches = phase_sgm_serve(left, right)
+    _free()
     times = phase_times(card)
+    sgm_times = phase_sgm_times(card)
     kernels = []
     for name in ("sad_wta", "sad_lr"):
         ms, plain_ms = times[(name, 16, 64)]
+        bound_ms, bound_by = sad_bound(name)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    # the row of each SGM kernel: its stage on the served (unfused) chain,
+    # and the fused epilogue for sgm_epilogue
+    rows = {"sgm_aggregate": "vertical bf16->bf16",
+            "sgm_transpose_add": "summed volume bf16+bf16->bf16",
+            "sgm_epilogue": "u8 x2 -> f32 subpixel"}
+    for name, stage in rows.items():
+        t = next(r for r in sgm_times if r["stage"] == stage)
+        n = (fused_launches if name == "sgm_epilogue" else sgm_launches)[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": n,
+            "max_abs_err": sgm_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

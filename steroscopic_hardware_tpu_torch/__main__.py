@@ -3,8 +3,9 @@
 
 Same flags as the JAX server, plus ``--device {cuda,cpu}`` (default cuda:
 the hand-written kernels, raising at start without a usable GPU; cpu runs
-the plain torch versions). Flags whose code is not ported yet (SLAM,
-``--backend sgm``, ``--calib``) exit with an error instead of being
+the plain torch versions). ``--backend sgm`` serves the census/SGM engine
+(``SGMMatcher``) instead of SAD. Flags whose code is not ported yet (SLAM,
+``--calib``, ``--backend xla``) exit with an error instead of being
 ignored.
 
 ``build_app`` builds the whole server (matcher, pipelines, sources, HTTP
@@ -20,9 +21,12 @@ import os
 import signal
 import threading
 
-from steroscopic_hardware_tpu.runtime import logger as shlog
-from steroscopic_hardware_tpu.runtime.manager import CameraManager
-from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+from steroscopic_hardware_tpu_torch.runtime import logger as shlog
+from steroscopic_hardware_tpu_torch.runtime.manager import CameraManager
+from steroscopic_hardware_tpu_torch.models.blockmatch import (
+    BlockMatcher,
+    SGMMatcher,
+)
 from steroscopic_hardware_tpu_torch.runtime.pipeline import DepthPipeline
 from steroscopic_hardware_tpu_torch.runtime.server import AppContext, Server
 from steroscopic_hardware_tpu_torch.runtime.sources import (
@@ -54,13 +58,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default=True,
                     help="do not auto-open the live view in a browser")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda: the hand-written SAD kernels (fails at start "
+                    help="cuda: the hand-written kernels (fails at start "
                          "without a usable GPU); cpu: the plain torch "
                          "versions")
     ap.add_argument(
         "--backend", default="auto", choices=["auto", "pallas", "xla", "sgm"],
-        help="auto/pallas: the SAD kernel path (the only one on the GPU); "
-             "xla and sgm are not available in this package",
+        help="auto/pallas: the SAD kernels; sgm: the census/SGM engine; "
+             "xla is not available in this package",
     )
     # SLAM, rectification and their camera model are not ported yet; any
     # use of these flags exits with an error (see _NOT_PORTED)
@@ -119,9 +123,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, dest) is not None:
             ap.error(f"{flag} is not ported to steroscopic_hardware_tpu_torch "
                      "yet (SLAM and rectification come in later slices)")
-    if args.backend == "sgm":
-        ap.error("--backend sgm is not ported to steroscopic_hardware_tpu_torch "
-                 "yet")
     if args.backend == "xla":
         ap.error("--backend xla: there is no plain path on the GPU; "
                  "--device cpu runs the plain torch versions")
@@ -145,7 +146,7 @@ class App:
 
     def start(self) -> "App":
         self.server.start()
-        if self.args.prewarm:
+        if self.args.prewarm and hasattr(self.matcher, "warmup"):
             lf = self.manager.bus.latest("left")
             shape = lf.data.shape if lf is not None else (480, 640)
             threading.Thread(
@@ -166,6 +167,8 @@ def build_app(argv=None) -> App:
     manager = CameraManager()
 
     def make_matcher():
+        if args.backend == "sgm":
+            return SGMMatcher(device=args.device)
         return BlockMatcher(device=args.device)
 
     matcher = make_matcher()  # raises here on --device cuda without a GPU

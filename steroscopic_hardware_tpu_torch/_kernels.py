@@ -1,13 +1,14 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-``csrc/sad.cu`` is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The library
-is named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. It lands in ``build_dir()``:
-``$STEROSCOPIC_KERNEL_DIR`` if set, else ``build/kernels/`` of the source
-checkout the package runs from, else (an installed package) a per-user cache
-under ``$XDG_CACHE_HOME`` or ``~/.cache``. Nothing here runs at import time:
-the CPU tests import every module.
+Every ``csrc/*.cu`` (``sad.cu``: the SAD kernels; ``sgm.cu``: the SGM
+kernels) is compiled at first use by ONE ``nvcc`` call for ``sm_90a`` into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library is named by a hash of all the sources and the flags, so an edited
+source is rebuilt and an unchanged set is reused. It lands in
+``build_dir()``: ``$STEROSCOPIC_KERNEL_DIR`` if set, else ``build/kernels/``
+of the source checkout the package runs from, else (an installed package) a
+per-user cache under ``$XDG_CACHE_HOME`` or ``~/.cache``. Nothing here runs
+at import time: the CPU tests import every module.
 
 Each launcher checks device, dtype, layout and shape, allocates its outputs
 with ``torch.empty``, launches under torch's device guard on the current
@@ -18,6 +19,7 @@ launch was refused, and adds one to its count in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -27,7 +29,7 @@ import time
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "sad.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu"))))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +42,8 @@ MAX_DISPARITY = 511
 
 # Launches per kernel since the last reset_launches(); the wrappers add one
 # where they launch and nowhere else.
-launches = {"sad_wta": 0, "sad_lr": 0}
+launches = {"sad_wta": 0, "sad_lr": 0, "sgm_aggregate": 0,
+            "sgm_transpose_add": 0, "sgm_epilogue": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -70,33 +73,37 @@ def _nvcc() -> str:
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc is "
-                           "needed to build csrc/sad.cu")
+                           "needed to build csrc/*.cu")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def _library_path() -> str:
-    """Path of the built library for the current source and flags."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), f"sad-{digest.hexdigest()[:16]}.so")
+    """Path of the built library for the current sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(build_dir(), f"kernels-{digest.hexdigest()[:16]}.so")
 
 
 def build() -> tuple[str, float]:
-    """Compile ``csrc/sad.cu`` unless the library for this source exists.
-    Returns (library path, seconds spent compiling). The compiler's
-    resource report (registers, shared memory, spills) is kept beside the
-    library as ``.log``."""
+    """Compile every ``csrc/*.cu`` in one ``nvcc`` call unless the library
+    for these sources exists. Returns (library path, seconds spent
+    compiling). The compiler's resource report (registers, shared memory,
+    spills) is kept beside the library as ``.log``."""
     path = _library_path()
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {', '.join(SOURCES)}:\n"
+                           f"{proc.stderr}")
     with open(path[:-3] + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, path)
@@ -118,6 +125,16 @@ def load() -> ctypes.CDLL:
             lib.sad_lr.argtypes = ([ptr] * 7 + [i64, i64] + [i32] * 6
                                    + [ptr])
             lib.sad_lr.restype = i32
+            f32 = ctypes.c_float
+            lib.sgm_max_d.argtypes = []
+            lib.sgm_max_d.restype = i32
+            lib.sgm_aggregate.argtypes = ([ptr] * 2 + [i32] * 5
+                                          + [f32, f32, ptr])
+            lib.sgm_aggregate.restype = i32
+            lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.sgm_transpose_add.restype = i32
+            lib.sgm_epilogue.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.sgm_epilogue.restype = i32
             lib.sad_error_string.argtypes = [i32]
             lib.sad_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -199,3 +216,98 @@ def sad_lr(lefts, rights, block_size: int, max_disparity: int,
     _raise_on(lib, err, "sad_lr")
     launches["sad_lr"] += 1
     return tuple(outs)
+
+
+# -- SGM (csrc/sgm.cu) --------------------------------------------------------
+
+_TYPE_CODES = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _check_volume(t, name, ndim=3):
+    """A contiguous uint8 / bfloat16 / float32 CUDA tensor; returns its
+    type code."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in _TYPE_CODES:
+        raise ValueError(f"{name} must be uint8, bfloat16 or float32, "
+                         f"got {t.dtype}")
+    if t.ndim != ndim or t.numel() == 0:
+        raise ValueError(f"{name} must be a non-empty {ndim}-D volume, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return _TYPE_CODES[t.dtype]
+
+
+def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
+    """(D, S, K) forward + backward SGM aggregation along S, stored in
+    ``out_dtype`` (uint8 / bfloat16 / float32)."""
+    in_type = _check_volume(cost, "cost")
+    if out_dtype not in _TYPE_CODES:
+        raise ValueError(f"out_dtype must be uint8, bfloat16 or float32, "
+                         f"got {out_dtype}")
+    D, S, K = cost.shape
+    with torch.cuda.device(cost.device):
+        lib = load()
+        if D > lib.sgm_max_d():
+            raise ValueError(f"D = {D} above the kernel's {lib.sgm_max_d()}")
+        out = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        err = lib.sgm_aggregate(cost.data_ptr(), out.data_ptr(), D, S, K,
+                                in_type, _TYPE_CODES[out_dtype], float(p1),
+                                float(p2), stream)
+    _raise_on(lib, err, "sgm_aggregate")
+    launches["sgm_aggregate"] += 1
+    return out
+
+
+def sgm_transpose_add(aT, b, out_dtype):
+    """(D, A, B) ``aT.transpose(1, 2) [+ b]`` in float32, stored in
+    ``out_dtype`` (bfloat16 / float32); aT (D, B, A), b None or (D, A, B)
+    of aT's dtype on its device."""
+    in_type = _check_volume(aT, "aT")
+    D, B, A = aT.shape
+    if b is not None:
+        _check_volume(b, "b")
+        if (b.shape != (D, A, B) or b.dtype != aT.dtype
+                or b.device != aT.device):
+            raise ValueError(f"b must be {(D, A, B)} {aT.dtype} on "
+                             f"{aT.device}, got {tuple(b.shape)} {b.dtype} "
+                             f"on {b.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
+    with torch.cuda.device(aT.device):
+        lib = load()
+        out = torch.empty((D, A, B), dtype=out_dtype, device=aT.device)
+        stream = torch.cuda.current_stream(aT.device).cuda_stream
+        err = lib.sgm_transpose_add(aT.data_ptr(),
+                                    None if b is None else b.data_ptr(),
+                                    out.data_ptr(), D, B, A, in_type,
+                                    _TYPE_CODES[out_dtype], stream)
+    _raise_on(lib, err, "sgm_transpose_add")
+    launches["sgm_transpose_add"] += 1
+    return out
+
+
+def sgm_epilogue(agg_v, agg_ht, subpixel: bool):
+    """float32 (H, W) disparity: first-min argmin over d of agg_v (D, H, W)
+    + agg_ht (D, W, H) transposed, with the parabola when ``subpixel``."""
+    in_type = _check_volume(agg_v, "agg_v")
+    _check_volume(agg_ht, "agg_ht")
+    D, H, W = agg_v.shape
+    if (agg_ht.shape != (D, W, H) or agg_ht.dtype != agg_v.dtype
+            or agg_ht.device != agg_v.device):
+        raise ValueError(f"agg_ht must be {(D, W, H)} {agg_v.dtype} on "
+                         f"{agg_v.device}, got {tuple(agg_ht.shape)} "
+                         f"{agg_ht.dtype} on {agg_ht.device}")
+    with torch.cuda.device(agg_v.device):
+        lib = load()
+        out = torch.empty((H, W), dtype=torch.float32, device=agg_v.device)
+        stream = torch.cuda.current_stream(agg_v.device).cuda_stream
+        err = lib.sgm_epilogue(agg_v.data_ptr(), agg_ht.data_ptr(),
+                               out.data_ptr(), D, H, W, in_type,
+                               int(subpixel), stream)
+    _raise_on(lib, err, "sgm_epilogue")
+    launches["sgm_epilogue"] += 1
+    return out

@@ -1,0 +1,431 @@
+// Semi-global matching (SGM) kernels, hand-written for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of the census/SGM engine
+// (steroscopic_hardware_tpu/ops/sgm.py):
+//   sgm_aggregate      <- _aggregate_axis_pallas  (B3)
+//   sgm_transpose_add  <- _transpose_add_pallas   (B4)
+//   sgm_epilogue       <- _sgm_epilogue_pallas    (B5)
+// Each computes what its TPU kernel computes, d-major only, with no pads:
+// the kernels mask their ragged edges themselves. Storage types: 0 uint8,
+// 1 bfloat16, 2 float32; arithmetic is float32 throughout.
+//
+// B3, sgm_aggregate. cost (D, S, K) -> out (D, S, K): for each column k the
+// SGM recursion along s, forward and backward,
+//   L(s, d) = (C(s, d) + best) - m,  m = min_d' L(s-1, d'),
+//   best    = min(min(L(s-1, d), min(L(s-1, d+1), L(s-1, d-1)) + P1), m + P2)
+// (d outside [0, D) is +INF; L(0) = C), in the operation order of the TPU
+// kernel's recurse(), so the fractional-penalty float32 tier matches the
+// plain version bit for bit. Each direction is stored in the output type
+// and the two are added in it (uint8 widened to int, bfloat16 through
+// float32 and rounded), as the TPU kernel's epilogue adds fwd + bwd.
+// Design: one warp per (direction, scan column) carries the D path values
+// in registers, VPL = ceil(D / 32) contiguous d per lane; the d +- 1
+// neighbours across lanes come from __shfl_up/down_sync and min_d' from a
+// butterfly reduction (the warp-per-scanline mapping of arXiv:1610.04121).
+// A block takes AGG_TK = 8 adjacent columns (16 warps: both directions) so
+// that each step's (D, 8) slab is read and written coalesced along k
+// through shared memory; the next step's slab is prefetched into
+// registers while the warps run the recursion. Forward and backward meet
+// in the middle of the column: the first direction to reach a position
+// stores its raw path value, the second reads it back and stores the sum
+// (the same thread owns the element at both visits, so program order
+// makes the write visible). Bound on the H100: memory, D * S * K elements
+// read once and written once (e.g. 1080p d64 bf16 -> bf16: 539 MB,
+// 161 us at 3.35 TB/s). This kernel moves the output twice more (the raw
+// half and its read-back) and runs S dependent steps per column, so it
+// is latency- and shuffle-bound well above that; the 1080p scanline count
+// (1920 or 1080 columns) fills the card with 240 or 135 blocks.
+//
+// B4, sgm_transpose_add. out[d, a, b] = aT[d, b, a] (+ bb[d, a, b]) in float32,
+// stored in the output type. A 32 x 32 tile per block, read coalesced
+// along a into shared memory (one column of padding against bank
+// conflicts), written coalesced along b with the optional addend read in
+// the same pass. Bound: memory (bytes in + bytes out once).
+//
+// B5, sgm_epilogue. agg_v (D, H, W) + agg_ht (D, W, H) -> disparity float32
+// (H, W): c(d) = agg_v[d] + agg_ht[d]^T in float32, a running first-minimum
+// argmin over increasing d (strict <), the neighbour costs captured in the
+// sweep (a win takes the previous slice as c0; the slice after the winner
+// gives c2), then the parabola
+//   denom = max(c0 - 2 best + c2, 1e-6), delta = clip(0.5 (c0 - c2) / denom)
+// for 1 <= d <= D - 2, with each operation rounded as torch rounds it
+// (explicit _rn intrinsics: no FMA contraction). One block per 32 x 32
+// pixel tile loops over d; the agg_ht slice is transposed through shared
+// memory so both volumes are read coalesced; best, bestd, c0, c2, prev
+// live in registers. The summed volume never reaches memory. Bound:
+// memory, both volumes read once plus the (H, W) map.
+//
+// C interface (bound with ctypes): device pointers, sizes, type codes and
+// the CUDA stream; each launches on that stream on the current device
+// without synchronising and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float INF = 1e9f;  // the TPU kernels' +INF: never wins a min
+constexpr unsigned FULL = 0xffffffffu;
+enum { T_U8 = 0, T_BF16 = 1, T_F32 = 2 };
+
+__device__ __forceinline__ float widen(uint8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(float x) { return x; }
+
+// float32 -> storage type: uint8 through int, truncating (the values are
+// small exact integers under the uint8 tier), bfloat16 round-to-nearest.
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ uint8_t narrow<uint8_t>(float x) {
+  return static_cast<uint8_t>(static_cast<int>(x));
+}
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+
+// a + b of two stored values, in the storage type
+__device__ __forceinline__ uint8_t add_stored(uint8_t a, uint8_t b) {
+  return static_cast<uint8_t>(static_cast<int>(a) + static_cast<int>(b));
+}
+__device__ __forceinline__ __nv_bfloat16 add_stored(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ __forceinline__ float add_stored(float a, float b) { return __fadd_rn(a, b); }
+
+// -- B3 ------------------------------------------------------------------------
+
+constexpr int AGG_TK = 8;                  // scan columns per block
+constexpr int AGG_THREADS = 64 * AGG_TK;   // a warp per (direction, column)
+constexpr int AGG_VMAX = 9;                // d values per lane: D <= 288
+constexpr int AGG_DMAX = 32 * AGG_VMAX;
+constexpr int AGG_EMAX = (AGG_DMAX * AGG_TK + AGG_THREADS - 1) / AGG_THREADS;
+
+__host__ __device__ inline int agg_row(int vpl) { return 32 * vpl + 1; }
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(AGG_THREADS)
+    sgm_aggregate_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out,
+                         int D, int S, int K, int vpl, float p1, float p2) {
+  // cs / os: [direction][column][row of agg_row(vpl) floats], the staged
+  // cost slab of this step and the path values to store
+  extern __shared__ float smem[];
+  const int R = agg_row(vpl);
+  float* cs = smem;
+  float* os = smem + 2 * AGG_TK * R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dir = warp / AGG_TK, col = warp % AGG_TK;
+  const int k0 = blockIdx.x * AGG_TK;
+  const size_t SK = static_cast<size_t>(S) * K;
+
+  // element n of this thread: (d, c) = divmod(tid + n * AGG_THREADS, AGG_TK),
+  // the same at every step for the cost loads, the stores and read-backs
+  float cf[AGG_EMAX], cb[AGG_EMAX];  // cost at the forward / backward row
+  Tout rf[AGG_EMAX], rb[AGG_EMAX];   // raw partials the next step adds to
+#pragma unroll
+  for (int n = 0; n < AGG_EMAX; ++n) {
+    const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
+    const bool ok = d < D && k < K;
+    const size_t base = static_cast<size_t>(d) * SK + k;
+    cf[n] = ok ? widen(cost[base]) : 0.f;
+    cb[n] = ok ? widen(cost[base + static_cast<size_t>(S - 1) * K]) : 0.f;
+  }
+
+  float L[AGG_VMAX];
+  for (int i = 0; i < S; ++i) {
+    const int sf = i, sb = S - 1 - i;
+#pragma unroll
+    for (int n = 0; n < AGG_EMAX; ++n) {
+      const int e = tid + n * AGG_THREADS, d = e / AGG_TK, c = e % AGG_TK;
+      if (d < D) {
+        cs[c * R + d] = cf[n];
+        cs[(AGG_TK + c) * R + d] = cb[n];
+      }
+    }
+    __syncthreads();
+    if (i + 1 < S) {  // prefetch the next step's slab
+#pragma unroll
+      for (int n = 0; n < AGG_EMAX; ++n) {
+        const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
+        const bool ok = d < D && k < K;
+        const size_t base = static_cast<size_t>(d) * SK + k;
+        cf[n] = ok ? widen(cost[base + static_cast<size_t>(sf + 1) * K]) : 0.f;
+        cb[n] = ok ? widen(cost[base + static_cast<size_t>(sb - 1) * K]) : 0.f;
+      }
+    }
+
+    // the recursion of this warp's (direction, column)
+    const float* cw = cs + (dir * AGG_TK + col) * R + lane * vpl;
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < AGG_VMAX; ++j)
+        L[j] = (j < vpl && lane * vpl + j < D) ? cw[j] : INF;
+    } else {
+      float m = INF, last = INF;
+#pragma unroll
+      for (int j = 0; j < AGG_VMAX; ++j) {
+        m = fminf(m, L[j]);
+        if (j == vpl - 1) last = L[j];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, o));
+      float up_edge = __shfl_down_sync(FULL, L[0], 1);  // d = (lane+1)*vpl
+      float dn_edge = __shfl_up_sync(FULL, last, 1);    // d = lane*vpl - 1
+      if (lane == 31) up_edge = INF;
+      if (lane == 0) dn_edge = INF;
+      float nl[AGG_VMAX];
+#pragma unroll
+      for (int j = 0; j < AGG_VMAX; ++j) {
+        if (j < vpl && lane * vpl + j < D) {
+          const float up = (j == vpl - 1) ? up_edge : L[j + 1 < AGG_VMAX ? j + 1 : j];
+          const float dn = (j == 0) ? dn_edge : L[j > 0 ? j - 1 : 0];
+          const float best =
+              fminf(fminf(L[j], __fadd_rn(fminf(up, dn), p1)), __fadd_rn(m, p2));
+          nl[j] = __fsub_rn(__fadd_rn(cw[j], best), m);
+        } else {
+          nl[j] = INF;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < AGG_VMAX; ++j) L[j] = nl[j];
+    }
+    float* ow = os + (dir * AGG_TK + col) * R + lane * vpl;
+#pragma unroll
+    for (int j = 0; j < AGG_VMAX; ++j)
+      if (j < vpl) ow[j] = L[j];
+    __syncthreads();
+
+    // store this step: raw where the other direction has not been yet, the
+    // sum where it has (or is, in the middle row of an odd S)
+#pragma unroll
+    for (int n = 0; n < AGG_EMAX; ++n) {
+      const int e = tid + n * AGG_THREADS, d = e / AGG_TK, c = e % AGG_TK;
+      const int k = k0 + c;
+      if (d < D && k < K) {
+        const Tout vf = narrow<Tout>(os[c * R + d]);
+        const Tout vb = narrow<Tout>(os[(AGG_TK + c) * R + d]);
+        const size_t base = static_cast<size_t>(d) * SK + k;
+        Tout* pf = out + base + static_cast<size_t>(sf) * K;
+        Tout* pb = out + base + static_cast<size_t>(sb) * K;
+        if (sf < sb) {
+          *pf = vf;
+          *pb = vb;
+        } else if (sf == sb) {
+          *pf = add_stored(vf, vb);
+        } else {
+          *pf = add_stored(rf[n], vf);
+          *pb = add_stored(rb[n], vb);
+        }
+      }
+    }
+    // read back the raw partials the next step adds to: this thread stored
+    // them at step S - 2 - i, at or before this one
+    if (i + 1 < S && i + 1 > sb - 1) {
+#pragma unroll
+      for (int n = 0; n < AGG_EMAX; ++n) {
+        const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
+        if (d < D && k < K) {
+          const size_t base = static_cast<size_t>(d) * SK + k;
+          rf[n] = out[base + static_cast<size_t>(sf + 1) * K];
+          rb[n] = out[base + static_cast<size_t>(sb - 1) * K];
+        }
+      }
+    }
+  }
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch_aggregate(const void* cost, void* out, int D, int S, int K,
+                             float p1, float p2, cudaStream_t stream) {
+  const int vpl = (D + 31) / 32;
+  const size_t smem = sizeof(float) * 4 * AGG_TK * agg_row(vpl);
+  sgm_aggregate_kernel<Tin, Tout><<<(K + AGG_TK - 1) / AGG_TK, AGG_THREADS, smem,
+                                    stream>>>(
+      static_cast<const Tin*>(cost), static_cast<Tout*>(out), D, S, K, vpl, p1, p2);
+  return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t aggregate_out(int out_type, const void* cost, void* out, int D, int S,
+                          int K, float p1, float p2, cudaStream_t stream) {
+  switch (out_type) {
+    case T_U8: return launch_aggregate<Tin, uint8_t>(cost, out, D, S, K, p1, p2, stream);
+    case T_BF16:
+      return launch_aggregate<Tin, __nv_bfloat16>(cost, out, D, S, K, p1, p2, stream);
+    case T_F32: return launch_aggregate<Tin, float>(cost, out, D, S, K, p1, p2, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// -- B4 ------------------------------------------------------------------------
+
+template <typename Ta, typename Tout, bool HAS_B>
+__global__ void __launch_bounds__(256)
+    sgm_transpose_add_kernel(const Ta* __restrict__ aT, const Ta* __restrict__ b,
+                             Tout* __restrict__ out, int B, int A) {
+  __shared__ float tile[32][33];
+  const size_t plane = static_cast<size_t>(A) * B;
+  const size_t off = static_cast<size_t>(blockIdx.z) * plane;
+  const int a0 = blockIdx.x * 32, b0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) {
+    const int bb = b0 + r, aa = a0 + tx;
+    if (bb < B && aa < A) tile[r][tx] = widen(aT[off + static_cast<size_t>(bb) * A + aa]);
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int aa = a0 + r, bb = b0 + tx;
+    if (aa < A && bb < B) {
+      const size_t o = off + static_cast<size_t>(aa) * B + bb;
+      float v = tile[tx][r];
+      if (HAS_B) v = __fadd_rn(widen(b[o]), v);
+      out[o] = narrow<Tout>(v);
+    }
+  }
+}
+
+template <typename Ta, typename Tout>
+cudaError_t launch_transpose_add(const void* aT, const void* b, void* out, int D,
+                                 int B, int A, cudaStream_t stream) {
+  const dim3 grid((A + 31) / 32, (B + 31) / 32, D), block(32, 8);
+  if (b != nullptr)
+    sgm_transpose_add_kernel<Ta, Tout, true><<<grid, block, 0, stream>>>(
+        static_cast<const Ta*>(aT), static_cast<const Ta*>(b), static_cast<Tout*>(out),
+        B, A);
+  else
+    sgm_transpose_add_kernel<Ta, Tout, false><<<grid, block, 0, stream>>>(
+        static_cast<const Ta*>(aT), nullptr, static_cast<Tout*>(out), B, A);
+  return cudaGetLastError();
+}
+
+template <typename Ta>
+cudaError_t transpose_add_out(int out_type, const void* aT, const void* b, void* out,
+                              int D, int B, int A, cudaStream_t stream) {
+  switch (out_type) {
+    case T_BF16:
+      return launch_transpose_add<Ta, __nv_bfloat16>(aT, b, out, D, B, A, stream);
+    case T_F32: return launch_transpose_add<Ta, float>(aT, b, out, D, B, A, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// -- B5 ------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sgm_epilogue_kernel(const T* __restrict__ agg_v, const T* __restrict__ agg_ht,
+                        float* __restrict__ out, int D, int H, int W, int subpixel) {
+  __shared__ float tile[32][33];  // tile[x - x0][y - y0] of agg_ht[d]
+  const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const int x = x0 + tx;
+  float best[4], c0[4], c2[4], prev[4];
+  int bestd[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    best[q] = c0[q] = c2[q] = prev[q] = INF;
+    bestd[q] = 0;
+  }
+  for (int d = 0; d < D; ++d) {
+    const size_t off = static_cast<size_t>(d) * plane;
+    for (int r = ty; r < 32; r += 8) {
+      const int xx = x0 + r, yy = y0 + tx;
+      tile[r][tx] =
+          (xx < W && yy < H) ? widen(agg_ht[off + static_cast<size_t>(xx) * H + yy]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = ty + 8 * q, y = y0 + r;
+      const float c = (y < H && x < W)
+                          ? __fadd_rn(widen(agg_v[off + static_cast<size_t>(y) * W + x]),
+                                      tile[tx][r])
+                          : 0.f;
+      if (c < best[q]) {
+        c0[q] = prev[q];
+        best[q] = c;
+        bestd[q] = d;
+      }
+      if (bestd[q] == d - 1) c2[q] = c;
+      prev[q] = c;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int y = y0 + ty + 8 * q;
+    if (y >= H || x >= W) continue;
+    const float db = static_cast<float>(bestd[q]);
+    float v = db;
+    if (subpixel && bestd[q] >= 1 && bestd[q] <= D - 2) {
+      const float denom =
+          fmaxf(__fadd_rn(__fsub_rn(c0[q], __fmul_rn(2.f, best[q])), c2[q]), 1e-6f);
+      const float delta = fminf(
+          fmaxf(__fdiv_rn(__fmul_rn(0.5f, __fsub_rn(c0[q], c2[q])), denom), -0.5f), 0.5f);
+      v = __fadd_rn(db, delta);
+    }
+    out[static_cast<size_t>(y) * W + x] = v;
+  }
+}
+
+template <typename T>
+cudaError_t launch_epilogue(const void* agg_v, const void* agg_ht, void* out, int D,
+                            int H, int W, int subpixel, cudaStream_t stream) {
+  const dim3 grid((W + 31) / 32, (H + 31) / 32), block(32, 8);
+  sgm_epilogue_kernel<T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(agg_v), static_cast<const T*>(agg_ht), static_cast<float*>(out),
+      D, H, W, subpixel);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The largest D that sgm_aggregate takes (AGG_VMAX values per lane).
+int sgm_max_d() { return AGG_DMAX; }
+
+// out (D, S, K) = forward + backward aggregation of cost (D, S, K) along S,
+// both contiguous; in_type / out_type: 0 uint8, 1 bfloat16, 2 float32.
+int sgm_aggregate(const void* cost, void* out, int D, int S, int K, int in_type,
+                  int out_type, float p1, float p2, void* stream) {
+  if (D < 1 || D > AGG_DMAX) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case T_U8: return aggregate_out<uint8_t>(out_type, cost, out, D, S, K, p1, p2, s);
+    case T_BF16:
+      return aggregate_out<__nv_bfloat16>(out_type, cost, out, D, S, K, p1, p2, s);
+    case T_F32: return aggregate_out<float>(out_type, cost, out, D, S, K, p1, p2, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out (D, A, B) = aT (D, B, A) transposed (+ b (D, A, B), of aT's type, when
+// b is not null), all contiguous; out_type 1 bfloat16 or 2 float32.
+int sgm_transpose_add(const void* aT, const void* b, void* out, int D, int B, int A,
+                      int in_type, int out_type, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case T_U8: return transpose_add_out<uint8_t>(out_type, aT, b, out, D, B, A, s);
+    case T_BF16: return transpose_add_out<__nv_bfloat16>(out_type, aT, b, out, D, B, A, s);
+    case T_F32: return transpose_add_out<float>(out_type, aT, b, out, D, B, A, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out (H, W) float32 disparity from agg_v (D, H, W) and agg_ht (D, W, H) of one
+// type, both contiguous; subpixel 0 gives the integer argmin.
+int sgm_epilogue(const void* agg_v, const void* agg_ht, void* out, int D, int H, int W,
+                 int in_type, int subpixel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case T_U8: return launch_epilogue<uint8_t>(agg_v, agg_ht, out, D, H, W, subpixel, s);
+    case T_BF16:
+      return launch_epilogue<__nv_bfloat16>(agg_v, agg_ht, out, D, H, W, subpixel, s);
+    case T_F32: return launch_epilogue<float>(agg_v, agg_ht, out, D, H, W, subpixel, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,1 +1,2 @@
-"""Image I/O (counterpart of ``steroscopic_hardware_tpu.io``)."""
+"""Image I/O (counterpart of ``steroscopic_hardware_tpu.io``): the PNG and
+LZMA codecs."""

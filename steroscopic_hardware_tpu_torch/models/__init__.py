@@ -1,5 +1,8 @@
-"""Model-level API: the SAD block-matching engine."""
+"""Model-level API: the SAD block-matching and census/SGM engines."""
 
-from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+from steroscopic_hardware_tpu_torch.models.blockmatch import (
+    BlockMatcher,
+    SGMMatcher,
+)
 
-__all__ = ["BlockMatcher"]
+__all__ = ["BlockMatcher", "SGMMatcher"]

@@ -1,29 +1,30 @@
-"""BlockMatcher — the stereo SAD block-matching engine (counterpart of
-``models/blockmatch.py``).
+"""The stereo engines (counterpart of ``models/blockmatch.py``):
+``BlockMatcher`` (SAD block matching) and ``SGMMatcher`` (census + SGM).
 
-Owns the live-retunable parameter store (the JAX package's ``ParamStore``,
-imported unchanged) and an explicit ``torch.device``. On a CUDA device every
-disparity comes from the hand-written kernels of ``csrc/sad.cu``; the plain
-torch versions run only on an explicit CPU device. Block size and maximum
-disparity are runtime arguments of the kernels, so a retune needs no
+Each owns a live-retunable parameter store (``utils.params.ParamStore``)
+and an explicit ``torch.device``. On a CUDA device every disparity comes
+from the hand-written kernels of ``csrc/``; the plain torch versions run
+only on an explicit CPU device. Block size, maximum disparity and the SGM
+penalties are runtime arguments of the kernels, so a retune needs no
 rebuild.
 
-The serve step (``serve_step``, the ``_disparity_serve`` counterpart) takes a
-(B, 2, H, W) uint8 micro-batch that crossed to the device in ONE pinned copy,
-runs ONE kernel launch over all B frames, and packs the result into ONE
-buffer that comes back in one copy, in the three layouts of
-``_pack_serve``.
+A serve step takes a (B, 2, H, W) uint8 micro-batch that crossed to the
+device in ONE pinned copy and packs its result into ONE buffer that comes
+back in one copy, in the three layouts of ``_pack_serve``:
+``serve_step`` (the ``_disparity_serve`` counterpart) runs ONE SAD launch
+over all B frames; ``sgm_serve_step`` (``_sgm_serve``) runs the SGM chain
+per frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import numpy as np
 import torch
 
-from steroscopic_hardware_tpu.utils.params import Parameters, ParamStore
 from steroscopic_hardware_tpu_torch.ops.colorize import (
     colorize_disparity,
     downscale_u8,
@@ -33,6 +34,11 @@ from steroscopic_hardware_tpu_torch.ops.sad import (
     disparity_batch,
     disparity_lr,
 )
+from steroscopic_hardware_tpu_torch.ops.sgm import (
+    sgm_disparity,
+    sgm_lr_checked,
+)
+from steroscopic_hardware_tpu_torch.utils.params import Parameters, ParamStore
 
 
 def resolve_device(device) -> torch.device:
@@ -91,6 +97,40 @@ def pack_serve(depths, preview_scale, fetch_all, colorize_dev=True):
     return torch.cat([kept.reshape(-1), rgb.reshape(-1)])
 
 
+def _sgm_u8(disp, max_disparity) -> torch.Tensor:
+    """The serving quantisation ``clip(d * 255 / maxD + 0.5, 0, 255)``."""
+    return (disp * (255.0 / max_disparity) + 0.5).clamp(0, 255).to(torch.uint8)
+
+
+def sgm_one(left, right, *, max_disparity, p1, p2, subpixel, lr,
+            threshold) -> torch.Tensor:
+    """One frame of the SGM serving step (the ``_sgm_one`` counterpart):
+    uint8 disparity ``clip(d * 255 / maxD + 0.5, 0, 255)``, LR-masked to
+    255 when ``lr``."""
+    if lr:
+        disp, valid = sgm_lr_checked(left, right, max_disparity=max_disparity,
+                                     P1=p1, P2=p2, threshold=threshold)
+    else:
+        disp = sgm_disparity(left, right, max_disparity=max_disparity,
+                             P1=p1, P2=p2, subpixel=subpixel)
+    u8 = _sgm_u8(disp, max_disparity)
+    if lr:
+        u8 = torch.where(valid, u8, 255)
+    return u8
+
+
+def sgm_serve_step(stacked, *, max_disparity, p1, p2, subpixel, lr=False,
+                   threshold=1.0, preview_scale=1, fetch_all=True,
+                   colorize_dev=True) -> torch.Tensor:
+    """The SGM counterpart of :func:`serve_step` (``_sgm_serve``): the SGM
+    chain per frame of a (B, 2, H, W) micro-batch, packed the same way."""
+    depths = torch.stack([
+        sgm_one(stacked[b, 0], stacked[b, 1], max_disparity=max_disparity,
+                p1=p1, p2=p2, subpixel=subpixel, lr=lr, threshold=threshold)
+        for b in range(stacked.shape[0])])
+    return pack_serve(depths, preview_scale, fetch_all, colorize_dev)
+
+
 class ServeFuture:
     """The packed result of one serve step, copying back to the host.
     ``result()`` waits for the copy and returns the numpy array;
@@ -117,8 +157,60 @@ class ServeFuture:
         return self._start.elapsed_time(self._done)
 
 
+def enqueue_serve(device: torch.device, lock: threading.Lock, pairs,
+                  step) -> ServeFuture:
+    """Enqueue one serve step without waiting: stage the (left, right)
+    uint8 arrays of one shape into ONE pinned (B, 2, H, W) host buffer,
+    copy it to ``device``, run ``step`` (stacked device batch -> packed
+    uint8 tensor) under ``lock``, and start ONE copy of the packed result
+    back into pinned memory."""
+    H, W = np.asarray(pairs[0][0]).shape
+    cuda = device.type == "cuda"
+    host = torch.empty((len(pairs), 2, H, W), dtype=torch.uint8,
+                       pin_memory=cuda)
+    staged = host.numpy()
+    for b, (left, right) in enumerate(pairs):
+        staged[b, 0] = left
+        staged[b, 1] = right
+    with lock:
+        if cuda:
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        packed = step(host.to(device, non_blocking=True))
+        if not cuda:
+            return ServeFuture(packed)
+        out = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        out.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(stream)
+    return ServeFuture(out, start, done)
+
+
+class _Engine:
+    """What both engines share: the parameter store, the explicit device
+    and the lock that serializes their launches (the pipeline thread and a
+    warmup or request thread)."""
+
+    def __post_init__(self):
+        self.store = ParamStore(self.params)
+        self.device = resolve_device(self.device)
+        self._launch_lock = threading.Lock()
+
+    # -- live retuning (POST /update-params equivalent) ---------------------
+    def set_params(self, params: Parameters) -> None:
+        self.store.set(params)
+
+    def get_params(self) -> Parameters:
+        return self.store.get()
+
+    def _pair(self, left, right):
+        return (torch.as_tensor(np.asarray(left)).to(self.device),
+                torch.as_tensor(np.asarray(right)).to(self.device))
+
+
 @dataclasses.dataclass
-class BlockMatcher:
+class BlockMatcher(_Engine):
     """Stereo SAD block matcher with live-retunable parameters.
 
     Args:
@@ -133,24 +225,6 @@ class BlockMatcher:
     params: Parameters = dataclasses.field(default_factory=Parameters)
     device: str | torch.device = "cuda"
     lr_threshold: int | None = None
-
-    def __post_init__(self):
-        self.store = ParamStore(self.params)
-        self.device = resolve_device(self.device)
-        # serializes launches from the pipeline thread and a warmup thread
-        self._launch_lock = threading.Lock()
-
-    # -- live retuning (POST /update-params equivalent) ---------------------
-    def set_params(self, params: Parameters) -> None:
-        self.store.set(params)
-
-    def get_params(self) -> Parameters:
-        return self.store.get()
-
-    # -- compute ------------------------------------------------------------
-    def _pair(self, left, right):
-        return (torch.as_tensor(np.asarray(left)).to(self.device),
-                torch.as_tensor(np.asarray(right)).to(self.device))
 
     def _threshold(self) -> int:
         return 1 if self.lr_threshold is None else self.lr_threshold
@@ -188,34 +262,14 @@ class BlockMatcher:
         ``pairs``: list of (left, right) uint8 arrays of one shape.
         """
         p = self.store.get()
-        H, W = np.asarray(pairs[0][0]).shape
-        cuda = self.device.type == "cuda"
-        host = torch.empty((len(pairs), 2, H, W), dtype=torch.uint8,
-                           pin_memory=cuda)
-        staged = host.numpy()
-        for b, (left, right) in enumerate(pairs):
-            staged[b, 0] = left
-            staged[b, 1] = right
-        with self._launch_lock:
-            if cuda:
-                stream = torch.cuda.current_stream(self.device)
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-            packed = serve_step(
-                host.to(self.device, non_blocking=True),
-                block_size=p.block_size, max_disparity=p.max_disparity,
-                lr=lr, threshold=self._threshold(),
-                preview_scale=preview_scale, fetch_all=fetch_all,
-                colorize_dev=colorize_dev,
-            )
-            if not cuda:
-                return ServeFuture(packed)
-            out = torch.empty(packed.shape, dtype=torch.uint8,
-                              pin_memory=True)
-            out.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event(enable_timing=True)
-            done.record(stream)
-        return ServeFuture(out, start, done)
+        return enqueue_serve(self.device, self._launch_lock, pairs,
+                             functools.partial(
+                                 serve_step, block_size=p.block_size,
+                                 max_disparity=p.max_disparity, lr=lr,
+                                 threshold=self._threshold(),
+                                 preview_scale=preview_scale,
+                                 fetch_all=fetch_all,
+                                 colorize_dev=colorize_dev))
 
     # -- warmup -------------------------------------------------------------
     def warmup(self, shape, lr: bool = False) -> int:
@@ -231,3 +285,75 @@ class BlockMatcher:
             self.compute_serve_async([(zeros, zeros)], lr=True,
                                      colorize_dev=False).result()
         return 2 if lr else 1
+
+
+@dataclasses.dataclass
+class SGMMatcher(_Engine):
+    """Semi-global matching engine, a drop-in for :class:`BlockMatcher` in
+    the pipeline: census costs, 4-path aggregation, subpixel parabola.
+    Only ``max_disparity`` of the parameters applies. Like the JAX
+    ``SGMMatcher`` it has no ``warmup``: the first frame builds the kernel
+    library.
+
+    Args:
+      params: initial :class:`Parameters`.
+      p1, p2: the smoothness penalties.
+      subpixel: parabola refinement of :meth:`compute` and the serve step
+        (the LR-checked maps always use it).
+      device: "cuda" (the hand-written kernels; raises without a usable
+        GPU) or "cpu" (the plain torch versions).
+    """
+
+    params: Parameters = dataclasses.field(default_factory=Parameters)
+    p1: float = 1.0
+    p2: float = 8.0
+    subpixel: bool = True
+    device: str | torch.device = "cuda"
+
+    def compute_raw(self, left, right) -> np.ndarray:
+        """Float32 (subpixel when enabled) disparity in pixels."""
+        p = self.store.get()
+        L, R = self._pair(left, right)
+        with self._launch_lock:
+            disp = sgm_disparity(L, R, max_disparity=p.max_disparity,
+                                 P1=self.p1, P2=self.p2,
+                                 subpixel=self.subpixel)
+        return disp.cpu().numpy()
+
+    def compute(self, left, right) -> np.ndarray:
+        """uint8 disparity ``clip(d * 255 / maxD + 0.5, 0, 255)``."""
+        p = self.store.get()
+        L, R = self._pair(left, right)
+        with self._launch_lock:
+            out = sgm_one(L, R, max_disparity=p.max_disparity, p1=self.p1,
+                          p2=self.p2, subpixel=self.subpixel, lr=False,
+                          threshold=1.0)
+        return out.cpu().numpy()
+
+    def compute_checked(self, left, right):
+        """uint8 disparity masked to 255 where the left-right check fails
+        (the right map is the diagonal argmin of the same volume), and the
+        valid mask."""
+        p = self.store.get()
+        L, R = self._pair(left, right)
+        with self._launch_lock:
+            disp, valid = sgm_lr_checked(L, R, max_disparity=p.max_disparity,
+                                         P1=self.p1, P2=self.p2)
+            out = torch.where(valid, _sgm_u8(disp, p.max_disparity), 255)
+        return out.cpu().numpy(), valid.cpu().numpy()
+
+    def compute_serve_async(self, pairs, lr: bool = False,
+                            preview_scale: int = 1,
+                            fetch_all: bool = True,
+                            colorize_dev: bool = True) -> ServeFuture:
+        """The serve step of :meth:`BlockMatcher.compute_serve_async` with
+        the SGM chain per frame (:func:`sgm_serve_step`)."""
+        p = self.store.get()
+        return enqueue_serve(self.device, self._launch_lock, pairs,
+                             functools.partial(
+                                 sgm_serve_step,
+                                 max_disparity=p.max_disparity, p1=self.p1,
+                                 p2=self.p2, subpixel=self.subpixel, lr=lr,
+                                 preview_scale=preview_scale,
+                                 fetch_all=fetch_all,
+                                 colorize_dev=colorize_dev))

@@ -1,2 +1,2 @@
-"""Compute ops: SAD disparity (plain torch + CUDA kernel wrappers),
-left-right consistency, grayscale conversion, colorization."""
+"""Compute ops: SAD and census/SGM disparity (plain torch + CUDA kernel
+wrappers), left-right consistency, grayscale conversion, colorization."""

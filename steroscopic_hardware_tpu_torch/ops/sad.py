@@ -123,7 +123,7 @@ def _uses_plain(*tensors) -> bool:
         return True
     if dev.type == "cuda":
         return False
-    raise ValueError(f"no SAD kernel for device {dev}")
+    raise ValueError(f"no kernel for device {dev}")
 
 
 def _check_pair(left, right, ndims):

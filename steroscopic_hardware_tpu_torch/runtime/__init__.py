@@ -1,3 +1,3 @@
-"""Serving runtime: depth pipeline, HTTP server and frame sources. The
-frame bus, camera manager, logger and wire protocol are the JAX package's
-own JAX-free modules."""
+"""Serving runtime: depth pipeline, HTTP server, frame sources, and the
+port's copies of the frame bus, camera manager, logger, wire protocol and
+emitter."""

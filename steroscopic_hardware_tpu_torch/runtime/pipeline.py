@@ -2,8 +2,8 @@
 ``DepthPipeline`` in ``runtime/pipeline.py``, unfused).
 
 The loop blocks on the in-memory bus for fresh stereo pairs, micro-batches
-up to ``max_batch`` of them, runs the ``BlockMatcher`` serve step (one
-upload, one kernel launch, one fetch per batch), publishes the depth maps to
+up to ``max_batch`` of them, runs the matcher's serve step (``BlockMatcher``
+or ``SGMMatcher``: one upload and one fetch per batch), publishes the depth maps to
 the ``out`` slot and the colorized newest frame to the ``depth`` slot, and
 keeps rolling fps / latency metrics.
 """
@@ -17,8 +17,8 @@ import zlib
 
 import numpy as np
 
-from steroscopic_hardware_tpu.runtime.bus import FrameBus
-from steroscopic_hardware_tpu.runtime.logger import get_logger
+from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
+from steroscopic_hardware_tpu_torch.runtime.logger import get_logger
 from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
 from steroscopic_hardware_tpu_torch.ops.colorize import (
     colorize_disparity_lut,

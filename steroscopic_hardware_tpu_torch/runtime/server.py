@@ -46,10 +46,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from steroscopic_hardware_tpu.runtime import logger as shlog
-from steroscopic_hardware_tpu.runtime.bus import FrameBus
-from steroscopic_hardware_tpu.runtime.manager import CameraManager
-from steroscopic_hardware_tpu.utils.params import (
+from steroscopic_hardware_tpu_torch.runtime import logger as shlog
+from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
+from steroscopic_hardware_tpu_torch.runtime.manager import CameraManager
+from steroscopic_hardware_tpu_torch.utils.params import (
     ParamValidationError,
     validate_params,
 )
@@ -346,7 +346,7 @@ def _make_handler(ctx: AppContext):
             if path == "/":
                 self._send(302, b"", extra={"Location": "/live"})
             elif path == "/live":
-                from steroscopic_hardware_tpu.version import __version__
+                from steroscopic_hardware_tpu_torch.version import __version__
 
                 if self._is_hx():
                     # fragment: just the status block, for htmx swaps
@@ -398,7 +398,7 @@ def _make_handler(ctx: AppContext):
                 # extra ingest surfaces: REAL serial devices first, then
                 # live in-process CameraEmitters and the endpoints of
                 # every currently configured source.
-                from steroscopic_hardware_tpu.runtime.emitter import (
+                from steroscopic_hardware_tpu_torch.runtime.emitter import (
                     list_emitters,
                 )
                 ports = [{"kind": "serial", "device": d}

@@ -37,6 +37,8 @@ MODES = {
     "preview-scale-2": (["--preview-scale", "2"], 1),
     "lr-check": (["--lr-check"], 1),
     "sources-2x": ([], 2),
+    "sgm": (["--backend", "sgm"], 1),
+    "sgm-lr-check": (["--backend", "sgm", "--lr-check"], 1),
 }
 _LAT = ("queue", "serve", "host")
 

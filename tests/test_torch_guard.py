@@ -1,6 +1,6 @@
-"""Guards of the port: it never loads jax, it never falls back to the CPU
-when CUDA was asked for, and on a card its kernels equal the plain torch
-versions bit for bit.
+"""Guards of the port: it never loads jax or the JAX package, it never falls
+back to the CPU when CUDA was asked for, and on a card its kernels equal
+the plain torch versions bit for bit.
 
 This file imports no jax and uses no conftest fixture, so the tests marked
 ``gpu`` run on a machine with a card and without jax:
@@ -17,41 +17,60 @@ import pytest
 import torch
 
 from steroscopic_hardware_tpu_torch import _kernels
-from steroscopic_hardware_tpu_torch.ops import sad
+from steroscopic_hardware_tpu_torch.ops import sad, sgm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX_SCRIPT = r"""
-import json, sys, urllib.request
+import importlib, json, pkgutil, sys, urllib.request
 import numpy as np
-import steroscopic_hardware_tpu_torch
+import torch
+import steroscopic_hardware_tpu_torch as port
 from steroscopic_hardware_tpu_torch.__main__ import build_app
-from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+from steroscopic_hardware_tpu_torch.models.blockmatch import (
+    BlockMatcher, SGMMatcher, sgm_serve_step)
 
+for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(mod.name)
 rng = np.random.default_rng(7)
 left = rng.integers(0, 256, (16, 40), dtype=np.uint8)
 right = np.roll(left, -2, axis=1)
 depth = BlockMatcher(device="cpu").compute_serve_async(
     [(left, right)], colorize_dev=False).result()
 assert depth.shape == (1, 16, 40), depth.shape
-app = build_app(["--device", "cpu", "--port", "0", "--no-open"]).start()
-try:
-    with urllib.request.urlopen(app.url + "/params", timeout=5) as r:
-        assert json.load(r) == {"blockSize": 16, "maxDisparity": 64}
-finally:
-    app.shutdown()
-print("jax loaded:", "jax" in sys.modules)
+depth = SGMMatcher(device="cpu").compute_serve_async(
+    [(left, right)], lr=True, colorize_dev=False).result()
+assert depth.shape == (1, 16, 40), depth.shape
+stacked = torch.from_numpy(np.stack([np.stack((left, right))]))
+packed = sgm_serve_step(stacked, max_disparity=16, p1=1.0, p2=8.0,
+                        subpixel=True)
+assert packed.shape == (4, 16, 40), packed.shape
+for backend in ("auto", "sgm"):
+    app = build_app(["--device", "cpu", "--port", "0", "--no-open",
+                     "--backend", backend]).start()
+    try:
+        with urllib.request.urlopen(app.url + "/params", timeout=5) as r:
+            assert json.load(r) == {"blockSize": 16, "maxDisparity": 64}
+    finally:
+        app.shutdown()
+print("foreign modules:", sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or (
+        m.split(".")[0] == "steroscopic_hardware_tpu")))
 """
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, a CPU SAD and SGM serve step and the
+    server with both backends load neither jax nor any module of the JAX
+    package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "jax loaded: False" in proc.stdout
+    assert "foreign modules: []" in proc.stdout, proc.stdout
 
 
 def _no_cuda():
@@ -143,7 +162,9 @@ def test_serve_path_launches_the_kernels(cuda):
     got = fut.result()
     assert fut.device_ms() > 0
     got_lr = m.compute_serve_async(pairs, lr=True, colorize_dev=False).result()
-    assert _kernels.launches == {"sad_wta": 1, "sad_lr": 1}
+    assert _kernels.launches == {"sad_wta": 1, "sad_lr": 1,
+                                 "sgm_aggregate": 0, "sgm_transpose_add": 0,
+                                 "sgm_epilogue": 0}
     want = sad.disparity_plain(L, R, block_size=16, max_disparity=64)
     assert np.array_equal(got, want.numpy())
     assert got_lr.shape == got.shape
@@ -161,3 +182,81 @@ def test_launcher_rejects_bad_inputs(cuda):
         _kernels.sad_wta(L, R, 65, 16)
     with pytest.raises(ValueError, match="max_disparity"):
         _kernels.sad_lr(L, R, 5, 512)
+
+
+def _volume(seed, shape, high=25):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 37, 53), (17, 53, 37),
+                                   (257, 40, 300), (65, 1080, 64)])
+@pytest.mark.parametrize("in_dtype,out_dtype,P", [
+    (torch.uint8, torch.uint8, (1.0, 8.0)),
+    (torch.bfloat16, torch.bfloat16, (1.0, 8.0)),
+    (torch.uint8, torch.float32, (0.7, 5.3))])
+def test_sgm_aggregate_equals_plain(cuda, shape, in_dtype, out_dtype, P):
+    cost = _volume(0, shape).to(cuda).to(in_dtype)
+    got = sgm.aggregate_axis(cost, *P, out_dtype=out_dtype)
+    want = sgm.aggregate_axis_plain(cost, *P, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 37, 53), (257, 40, 300)])
+def test_sgm_transpose_add_and_epilogue_equal_plain(cuda, shape):
+    aT = _volume(1, shape).to(cuda)
+    want = sgm.transpose_add_plain(aT, out_dtype=torch.bfloat16)
+    assert torch.equal(sgm.transpose_add(aT, out_dtype=torch.bfloat16), want)
+    b = _volume(2, want.shape).to(cuda).to(torch.bfloat16)
+    a16 = aT.to(torch.bfloat16)
+    f32 = torch.float32
+    assert torch.equal(sgm.transpose_add(a16, b, out_dtype=f32),
+                       sgm.transpose_add_plain(a16, b, out_dtype=f32))
+    D, H, W = shape
+    agg_v = _volume(3, (D, H, W), high=120).to(cuda)
+    agg_ht = _volume(4, (D, W, H), high=120).to(cuda)
+    for subpixel in (False, True):
+        got = sgm.sgm_epilogue(agg_v, agg_ht, subpixel=subpixel)
+        plain = sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=subpixel)
+        assert torch.equal(got, plain)
+
+
+@pytest.mark.gpu
+def test_sgm_serve_path_launches_the_kernels(cuda):
+    from steroscopic_hardware_tpu_torch.models.blockmatch import SGMMatcher
+
+    L, R = _pair(0, (2, 40, 96))
+    pairs = [(L[b].numpy(), R[b].numpy()) for b in range(2)]
+    m = SGMMatcher(device=cuda)
+    _kernels.reset_launches()
+    got = m.compute_serve_async(pairs, colorize_dev=False).result()
+    # per frame: B4 on the cost, B3 twice, B4 on the aggregates
+    assert _kernels.launches == {"sad_wta": 0, "sad_lr": 0,
+                                 "sgm_aggregate": 4, "sgm_transpose_add": 4,
+                                 "sgm_epilogue": 0}
+    cpu = SGMMatcher(device="cpu")
+    assert np.array_equal(
+        got, cpu.compute_serve_async(pairs, colorize_dev=False).result())
+    got_lr = m.compute_serve_async(pairs, lr=True, colorize_dev=False).result()
+    assert np.array_equal(got_lr, cpu.compute_serve_async(
+        pairs, lr=True, colorize_dev=False).result())
+
+
+@pytest.mark.gpu
+def test_sgm_launchers_reject_bad_inputs(cuda):
+    from steroscopic_hardware_tpu_torch import _kernels as k
+
+    cost = _volume(0, (17, 8, 8)).to(cuda)
+    with pytest.raises(ValueError, match="uint8, bfloat16 or float32"):
+        k.sgm_aggregate(cost.int(), 1.0, 8.0, torch.uint8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k.sgm_aggregate(cost.transpose(1, 2), 1.0, 8.0, torch.uint8)
+    with pytest.raises(ValueError, match="above the kernel"):
+        k.sgm_aggregate(_volume(0, (289, 2, 2)).to(cuda), 1.0, 8.0,
+                        torch.uint8)
+    with pytest.raises(ValueError, match="b must be"):
+        k.sgm_transpose_add(cost, cost.to(torch.bfloat16), torch.float32)
+    with pytest.raises(ValueError, match="agg_ht must be"):
+        k.sgm_epilogue(cost, cost[:, :4], True)

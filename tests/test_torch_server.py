@@ -1,7 +1,8 @@
 """The port's HTTP server end to end on the CPU (``--device cpu``, the plain
 torch versions): a 48x160 synthetic pair booted from PNGs through
 ``__main__.build_app``, the routes and status codes of the JAX server, and
-``/stream/out`` held exactly to the JAX ``BlockMatcher(backend="xla")``."""
+``/stream/out`` held exactly to the JAX ``BlockMatcher(backend="xla")`` and,
+with ``--backend sgm``, to the JAX ``SGMMatcher``."""
 
 import json
 import time
@@ -165,7 +166,7 @@ def test_serve_probe_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags", [
     ["--slam"], ["--slam-frontend", "sgm"], ["--no-slam-fused"],
     ["--calib", "rig.json"], ["--loop-closure"], ["--pg-horizon", "8"],
-    ["--backend", "sgm"], ["--backend", "xla"],
+    ["--fx", "500"], ["--backend", "xla"],
 ])
 def test_unported_flags_exit_with_an_error(flags, capsys):
     with pytest.raises(SystemExit) as e:
@@ -217,3 +218,82 @@ def test_pipeline_step_publishes_depth_and_preview(rng, colorize,
             jax_colorize.downscale_u8_jax(want, k)))
         assert rgb.shape == ref_rgb.shape
         assert np.abs(rgb.astype(int) - ref_rgb.astype(int)).max() <= 1
+
+
+# -- --backend sgm ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_sgm(tmp_path_factory):
+    rng = np.random.default_rng(4321)
+    left = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    right = np.clip(np.roll(left, -6, axis=1).astype(int)
+                    + rng.integers(-2, 3, (H, W)), 0, 255).astype(np.uint8)
+    d = tmp_path_factory.mktemp("sgm_pair")
+    write_png(str(d / "l.png"), left)
+    write_png(str(d / "r.png"), right)
+    app = build_app(["--left", str(d / "l.png"), "--right", str(d / "r.png"),
+                     "--backend", "sgm", "--device", "cpu", "--port", "0",
+                     "--no-open", "--fps", "15", "--prewarm"]).start()
+    try:
+        _wait_frames(app.url, 1)
+        yield app, left, right
+    finally:
+        app.shutdown()
+
+
+def test_sgm_stream_out_matches_jax_and_retunes(served_sgm):
+    """/stream/out of the SGM server equals the JAX SGMMatcher, before and
+    after /update-params sets maxDisparity 32."""
+    from steroscopic_hardware_tpu.models.blockmatch import (
+        SGMMatcher as JaxSGMMatcher,
+    )
+    from steroscopic_hardware_tpu_torch.models.blockmatch import SGMMatcher
+
+    app, left, right = served_sgm
+    base = app.url
+    assert isinstance(app.matcher, SGMMatcher)
+    want = JaxSGMMatcher(Parameters(16, 64)).compute(left, right)
+    assert np.array_equal(read_png(_get(base + "/stream/out")[1]), want)
+    status, body = _post(base + "/update-params",
+                         b"blockSize=7&maxDisparity=32")
+    assert status == 200
+    assert json.loads(body) == {"blockSize": 7, "maxDisparity": 32}
+    _wait_frames(base, _frames(base) + 17)
+    want = JaxSGMMatcher(Parameters(7, 32)).compute(left, right)
+    assert np.array_equal(read_png(_get(base + "/stream/out")[1]), want)
+    m = json.loads(_get(base + "/metrics")[1])["pipeline"]
+    assert m["errors"] == 0 and m["max_disparity"] == 32
+
+
+def test_sgm_pipeline_step_lr_matches_jax(rng):
+    """One pipeline step of the SGM engine with the LR check: the served
+    map is the JAX SGMMatcher's, masked to 255 where the check fails."""
+    from steroscopic_hardware_tpu.models.blockmatch import (
+        SGMMatcher as JaxSGMMatcher,
+    )
+    from steroscopic_hardware_tpu_torch.models.blockmatch import SGMMatcher
+    from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
+    from steroscopic_hardware_tpu_torch.runtime.pipeline import DepthPipeline
+
+    left = rng.integers(0, 256, (24, 50), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    bus = FrameBus()
+    bus.publish("left", left, source="test")
+    bus.publish("right", right, source="test")
+    pipe = DepthPipeline(bus, SGMMatcher(Parameters(5, 16), device="cpu"),
+                         lr_check=True)
+    pipe.step()
+    want = JaxSGMMatcher(Parameters(5, 16)).compute_checked(left, right)[0]
+    assert np.array_equal(bus.latest("out").data, want)
+    assert (want == 255).any() and pipe.frames == 1
+
+
+def test_sgm_backend_cuda_raises_without_a_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has CUDA; the no-fallback rule needs one "
+                    "without")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_app(["--backend", "sgm", "--device", "cuda", "--port", "0",
+                   "--no-open"])

@@ -1,0 +1,245 @@
+"""Parity of the port's census/SGM engine (``ops/sgm.py``,
+``models/blockmatch.SGMMatcher``) with the JAX package on the CPU.
+
+The JAX side runs as ``tests/test_sgm.py`` runs it: the XLA backend, and
+the Pallas kernels in interpret mode. Integer outputs (aggregates in every
+storage tier, transpose-adds, argmins, the served uint8 maps) must be
+exact. Subpixel maps get 1e-5: the parabola's float division and the
+order of XLA's fused arithmetic may differ from torch's by one ulp; every
+run here has in fact matched exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from steroscopic_hardware_tpu.models.blockmatch import (
+    SGMMatcher as JaxSGMMatcher,
+)
+from steroscopic_hardware_tpu.ops import sgm as jax_sgm
+from steroscopic_hardware_tpu.utils.params import Parameters as JaxParameters
+from steroscopic_hardware_tpu_torch.models.blockmatch import (
+    SGMMatcher,
+    sgm_serve_step,
+)
+from steroscopic_hardware_tpu_torch.ops import sgm
+from steroscopic_hardware_tpu_torch.utils.params import Parameters
+
+SUBPIXEL_TOL = 1e-5
+PENALTIES = [(1.0, 8.0), (2.0, 40.0), (0.7, 5.3)]
+JNP = {torch.uint8: jnp.uint8, torch.bfloat16: jnp.bfloat16,
+       torch.float32: jnp.float32}
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _pair(seed, shape=(24, 40), shift=3):
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, 256, shape, dtype=np.uint8)
+    right = np.clip(np.roll(left, -shift, axis=1).astype(int)
+                    + rng.integers(-2, 3, shape), 0, 255).astype(np.uint8)
+    return left, right
+
+
+def _cost(seed, shape):
+    return np.random.default_rng(seed).integers(0, 25, shape, dtype=np.uint8)
+
+
+# -- B3 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("P", PENALTIES)
+@pytest.mark.parametrize("axis", [1, 2])
+def test_aggregate_plain_equals_xla(P, axis):
+    cost = _cost(0, (17, 24, 40))
+    want = np.asarray(jax_sgm._aggregate_axis(
+        jnp.asarray(cost, jnp.float32), *P, axis=axis))
+    got = sgm.aggregate_axis_plain(torch.from_numpy(cost), *P, axis=axis)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("P,out_dtype", [
+    ((1.0, 8.0), torch.uint8), ((2.0, 40.0), torch.bfloat16),
+    ((0.7, 5.3), torch.float32)])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.bfloat16])
+def test_aggregate_plain_equals_pallas(P, out_dtype, in_dtype):
+    """Every storage tier of B3 against the Pallas kernel (interpret)."""
+    cost = torch.from_numpy(_cost(1, (17, 12, 20))).to(in_dtype)
+    want = jax_sgm._aggregate_axis_pallas(
+        jnp.asarray(cost.float().numpy()).astype(JNP[in_dtype]), *P, axis=1,
+        interpret=True, out_dtype=JNP[out_dtype])
+    got = sgm.aggregate_axis(cost, *P, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == cost.shape
+    assert np.array_equal(got.float().numpy(), _np(want))
+
+
+def test_aggregate_single_row_and_tiny_d():
+    """S = 1 (fwd + bwd of the cost itself) and a 2-deep d axis."""
+    for shape in [(5, 1, 9), (2, 7, 3)]:
+        cost = _cost(2, shape)
+        want = np.asarray(jax_sgm._aggregate_axis(
+            jnp.asarray(cost, jnp.float32), 1.0, 8.0, axis=1))
+        got = sgm.aggregate_axis_plain(torch.from_numpy(cost), 1.0, 8.0)
+        assert np.array_equal(got.numpy(), want)
+
+
+# -- B4 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("in_dtype,with_b,out_dtype", [
+    (torch.uint8, False, torch.bfloat16), (torch.uint8, False, torch.float32),
+    (torch.bfloat16, True, torch.bfloat16),
+    (torch.bfloat16, True, torch.float32),
+    (torch.float32, True, torch.float32)])
+def test_transpose_add_plain_equals_pallas(in_dtype, with_b, out_dtype):
+    rng = np.random.default_rng(3)
+    aT = torch.from_numpy(rng.integers(0, 120, (9, 37, 53),
+                                       dtype=np.uint8)).to(in_dtype)
+    b = (torch.from_numpy(rng.integers(0, 120, (9, 53, 37), dtype=np.uint8))
+         .to(in_dtype) if with_b else None)
+    want = jax_sgm._transpose_add_pallas(
+        jnp.asarray(aT.float().numpy()).astype(JNP[in_dtype]),
+        None if b is None
+        else jnp.asarray(b.float().numpy()).astype(JNP[in_dtype]),
+        interpret=True, out_dtype=JNP[out_dtype])
+    got = sgm.transpose_add(aT, b, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (9, 53, 37)
+    assert np.array_equal(got.float().numpy(), _np(want))
+
+
+# -- B5 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_sgm_epilogue_plain_equals_pallas(dtype, subpixel):
+    """The Pallas kernel needs 128-multiple planes: pad, run, crop. The
+    argmin is exact; the subpixel map within SUBPIXEL_TOL."""
+    D, H, W = 9, 37, 53
+    rng = np.random.default_rng(4)
+    agg_v = rng.integers(0, 120, (D, H, W), dtype=np.uint8)
+    agg_ht = rng.integers(0, 120, (D, W, H), dtype=np.uint8)
+    agg_v[:, :4, :4] = 7            # ties: the first minimum must win
+    agg_ht[:, :4, :4] = 7
+    tv = torch.from_numpy(agg_v).to(dtype)
+    tht = torch.from_numpy(agg_ht).to(dtype)
+    jv = jnp.pad(jnp.asarray(tv.float().numpy()).astype(JNP[dtype]),
+                 ((0, 0), (0, 128 - H), (0, 128 - W)))
+    jht = jnp.pad(jnp.asarray(tht.float().numpy()).astype(JNP[dtype]),
+                  ((0, 0), (0, 128 - W), (0, 128 - H)))
+    want = np.asarray(jax_sgm._sgm_epilogue_pallas(
+        jv, jht, D=D, subpixel=subpixel, interpret=True))[:H, :W]
+    got = sgm.sgm_epilogue(tv, tht, subpixel=subpixel).numpy()
+    assert got.dtype == np.float32 and got.shape == (H, W)
+    if not subpixel:
+        assert np.array_equal(got, want)
+    else:
+        assert np.array_equal(np.floor(got + 0.5), np.floor(want + 0.5))
+        np.testing.assert_allclose(got, want, rtol=0, atol=SUBPIXEL_TOL)
+    assert np.array_equal(
+        sgm.argmin_first(tv.float() + tht.float().transpose(1, 2)).numpy(),
+        np.asarray(jax_sgm._argmin_first(jnp.asarray(
+            tv.float().numpy() + tht.float().numpy().transpose(0, 2, 1)))))
+
+
+# -- the chain ----------------------------------------------------------------
+
+def _close(got, want, subpixel):
+    got = got.numpy()
+    want = np.asarray(want)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    if subpixel:
+        np.testing.assert_allclose(got, want, rtol=0, atol=SUBPIXEL_TOL)
+    else:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("P", PENALTIES)
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_sgm_disparity_equals_jax(P, subpixel):
+    """Both epilogues of the port's chain against the JAX package."""
+    left, right = _pair(5, (24, 40))
+    want = jax_sgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right),
+                                 max_disparity=16, P1=P[0], P2=P[1],
+                                 subpixel=subpixel, backend="xla")
+    L, R = torch.from_numpy(left), torch.from_numpy(right)
+    for epilogue in ("unfused", "fused"):
+        got = sgm.sgm_disparity(L, R, max_disparity=16, P1=P[0], P2=P[1],
+                                subpixel=subpixel, epilogue=epilogue)
+        _close(got, want, subpixel)
+
+
+def test_sgm_disparity_ragged_d32_equals_jax():
+    left, right = _pair(6, (37, 53), shift=9)
+    want = jax_sgm.sgm_disparity(jnp.asarray(left), jnp.asarray(right),
+                                 max_disparity=32, backend="xla")
+    got = sgm.sgm_disparity(torch.from_numpy(left), torch.from_numpy(right),
+                            max_disparity=32, epilogue="fused")
+    _close(got, want, True)
+
+
+@pytest.mark.parametrize("P", [(1.0, 8.0), (0.7, 5.3)])
+def test_sgm_lr_equals_jax(P):
+    left, right = _pair(7, (24, 40))
+    jL, jR = jax_sgm.sgm_disparity_lr(jnp.asarray(left), jnp.asarray(right),
+                                      max_disparity=16, P1=P[0], P2=P[1],
+                                      backend="xla")
+    L, R = torch.from_numpy(left), torch.from_numpy(right)
+    dL, dR = sgm.sgm_disparity_lr(L, R, max_disparity=16, P1=P[0], P2=P[1])
+    _close(dL, jL, True)
+    assert dR.dtype == torch.int32
+    assert np.array_equal(dR.numpy(), np.asarray(jR))
+    jd, jv = jax_sgm.sgm_lr_checked(jnp.asarray(left), jnp.asarray(right),
+                                    max_disparity=16, P1=P[0], P2=P[1],
+                                    backend="xla")
+    d, v = sgm.sgm_lr_checked(L, R, max_disparity=16, P1=P[0], P2=P[1])
+    assert np.array_equal(v.numpy(), np.asarray(jv))
+    _close(d, jd, True)
+
+
+def test_tier_gates_match_jax():
+    for P1 in (0.0, 1.0, 0.7, 103.0, 104.0):
+        for P2 in (0.0, 8.0, 5.3, 40.0, 41.0, 103.0, 104.0, 105.0):
+            for name in ("_u8_exact", "_bf16_exact", "_bf16_sum_exact"):
+                assert (getattr(sgm, name)(P1, P2)
+                        == getattr(jax_sgm, name)(P1, P2)), (name, P1, P2)
+
+
+# -- the matcher --------------------------------------------------------------
+
+def test_sgm_matcher_equals_jax():
+    """compute, compute_raw, compute_checked and the serve step (uint8,
+    LR-masked to 255) against the JAX SGMMatcher, exact."""
+    left, right = _pair(8, (24, 40))
+    ref = JaxSGMMatcher(JaxParameters(16, 16))
+    m = SGMMatcher(Parameters(16, 16), device="cpu")
+    want = ref.compute(left, right)
+    assert np.array_equal(m.compute(left, right), want)
+    np.testing.assert_allclose(m.compute_raw(left, right),
+                               ref.compute_raw(left, right), rtol=0,
+                               atol=SUBPIXEL_TOL)
+    want_chk, want_valid = ref.compute_checked(left, right)
+    got_chk, got_valid = m.compute_checked(left, right)
+    assert np.array_equal(got_chk, want_chk)
+    assert np.array_equal(got_valid, want_valid)
+    pairs = [_pair(9, (24, 40)), (left, right)]
+    for lr in (False, True):
+        want = np.asarray(ref.compute_serve_async(pairs, lr=lr,
+                                                  colorize_dev=False))
+        got = m.compute_serve_async(pairs, lr=lr, colorize_dev=False).result()
+        assert got.dtype == np.uint8 and np.array_equal(got, want), lr
+
+
+def test_sgm_serve_step_layouts():
+    """The packed layouts of the serve step: (B+3, H, W) with the RGB
+    planes of the newest depth, and the light 1D form."""
+    pairs = [_pair(10, (24, 40)), _pair(11, (24, 40))]
+    stacked = torch.from_numpy(np.stack([np.stack(p) for p in pairs]))
+    kw = dict(max_disparity=16, p1=1.0, p2=8.0, subpixel=True)
+    depths = sgm_serve_step(stacked, colorize_dev=False, **kw)
+    full = sgm_serve_step(stacked, **kw)
+    assert full.shape == (5, 24, 40) and torch.equal(full[:2], depths)
+    light = sgm_serve_step(stacked, preview_scale=2, fetch_all=False, **kw)
+    assert light.shape == (24 * 40 + 12 * 20 * 3,)
+    assert torch.equal(light[:24 * 40].reshape(24, 40), depths[-1])

@@ -8,15 +8,16 @@ both engines.
 
 Phases, one line each; the first that fails ends the run with a non-zero
 exit code:
-  1. the card (nvidia-smi name and power limit), torch / CUDA versions and
-     the kernel build time;
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions,
+     the kernel build time and ptxas's registers and spill bytes per kernel;
   2. SAD kernel == plain on the card, exact, at 1080p and ragged shapes, a
      4-frame batch, and sad_lr with and without costs;
-  2s. SGM kernel == plain on the card: sgm_aggregate in its three storage
+  2s. SGM kernel == plain on the card: sgm_aggregate in its six storage
      tiers (fractional penalties in float32), sgm_transpose_add with and
      without the addend, sgm_epilogue with and without subpixel, at 1080p
-     d64 and d256 and a ragged 37x53 d16; integers exact, floats within
-     1e-5 (max abs error printed);
+     d64 and d256 and a ragged 37x53 d16, and sgm_aggregate at the edges of
+     its launch plan (D 1..288, S 1 / 2 / 7, ragged K); integers exact,
+     floats within 1e-5 (max abs error printed);
   3. ground truth: a 1080p textured pair with a known piecewise-constant
      shift field; the SAD kernels must recover it on >= 90% of the pixels
      farther than maxD + h from any image or region edge;
@@ -29,7 +30,8 @@ exit code:
   4s. the same with ``--backend sgm``, with and without ``--lr-check``,
      each before and after a retune to maxDisparity 128;
   5. kernel and plain times at 1080p (CUDA events, median of 20 after 3
-     warm-ups), SAD and each SGM stage, beside each kernel's bound.
+     warm-ups), SAD (sad_lr also with costs) and each SGM stage, beside
+     each kernel's bound.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -104,12 +106,38 @@ def phase_build():
     path, seconds = _kernels.build()
     _kernels.load()
     with open(path[:-3] + ".log") as f:
-        regs = [ln.split(":", 1)[1].strip() for ln in f
-                if "registers" in ln]
+        usage = ptxas_usage(f.read())
     say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; nvcc build "
-        f"{seconds:.2f} s for sm_90a; ptxas: {'; '.join(regs)}")
+        f"{seconds:.2f} s for sm_90a; ptxas: "
+        + "; ".join(f"{name}: {regs} registers, {spill} spill bytes"
+                    for name, regs, spill in usage))
     return card
+
+
+def ptxas_usage(log):
+    """[(kernel, registers, spill store + load bytes)] from ``-Xptxas -v``
+    output, kernel names demangled where ``c++filt`` exists."""
+    rows, name, spill = [], None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln and name is not None:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            spill = nums[1] + nums[2]  # stack frame, spill stores, loads
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = int(ln.split("Used")[1].split()[0])
+            rows.append([name, regs, spill])
+            name, spill = None, 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return [tuple(r) for r in rows]
 
 
 def _compare(name, got, want, errs):
@@ -341,20 +369,24 @@ def phase_times(card):
     rng = np.random.default_rng(SEED + 1)
     L, R = to_cuda(*random_pair(rng, (1, H, W)))
     out = {}
+    # sad_lr with costs is the kernel under the subpixel SAD path (B2s)
     cases = [("sad_wta", 16, 64), ("sad_wta", 7, 128), ("sad_lr", 16, 64),
-             ("sad_lr", 7, 128)]
+             ("sad_lr", 7, 128), ("sad_lr_costs", 16, 64)]
     for name, b, d in cases:
         kw = dict(block_size=b, max_disparity=d)
         if name == "sad_wta":
             kernel = lambda: sad.disparity_batch(L, R, **kw)  # noqa: E731
             plain = lambda: sad.disparity_plain(L, R, **kw)  # noqa: E731
         else:
+            kw["with_costs"] = name == "sad_lr_costs"
             kernel = lambda: sad.disparity_lr(L, R, **kw)  # noqa: E731
             plain = lambda: sad.disparity_raw_lr_plain(L, R, **kw)  # noqa: E731
         ms, plain_ms = _time_ms(kernel), _time_ms(plain)
         out[(name, b, d)] = (ms, plain_ms)
+        bound_ms, bound_by = sad_bound(name, d)
         say(f"phase 5: {name} 1080p b{b} d{d}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms ({card})")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"({card})")
     say("phase 5 ok")
     return out
 
@@ -435,8 +467,28 @@ def phase_sgm_exact():
                       sub)
             del agg_v, agg_ht
             _free()
+    # sgm_aggregate at its launch plan's edges, in all six tiers: D at each
+    # boundary of the lanes per column, of the compiled chunk sizes and of
+    # the two kernels (136 / 137), S of 1, 2 and odd (the middle row), K
+    # ragged against a warp's columns
+    n_edges = len(results)
+    for D in (1, 2, 20, 21, 33, 36, 37, 40, 41, 65, 72, 73, 129, 136, 137,
+              144, 145, 257, 272, 273, 288):
+        for S, K in ((1, 37), (2, 45), (7, 33)):
+            cost = vol((D, S, K), 25)
+            for ind, outd, P in tiers:
+                c = cost.to(ind)
+                check("sgm_aggregate", f"edge ({D}, {S}, {K}) {ind}->{outd}",
+                      sgm.aggregate_axis(c, *P, out_dtype=outd),
+                      sgm.aggregate_axis_plain(c, *P, out_dtype=outd),
+                      outd == f32)
+    edges = results[n_edges:]
+    del results[n_edges:]
+    results.append(f"sgm_aggregate at {len(edges)} plan edges (D 1..288, S "
+                   f"1 / 2 / 7, K 37 / 45 / 33, six tiers): "
+                   f"{max(float(r.rsplit(': ', 1)[1]) for r in edges)}")
     say(f"phase 2s ok: SGM kernel vs plain, max abs error per case "
-        f"({len(results)} cases; {'; '.join(results)})")
+        f"({n_edges + len(edges)} cases; {'; '.join(results)})")
     return errs
 
 
@@ -643,13 +695,14 @@ def phase_sgm_times(card, maxd=64):
 
 def sad_bound(name, maxd=64):
     """(bound_ms, bound_by) of one 1080p frame: two uint8 images in, the
-    uint8 map (sad_wta) or two int32 maps (sad_lr) out; about 6 int32
-    operations per pixel and disparity with sliding window sums, twice
-    that for the two sweeps of sad_lr."""
+    uint8 map (sad_wta), two int32 maps (sad_lr) or five (sad_lr_costs)
+    out; about 6 int32 operations per pixel and disparity with sliding
+    window sums, twice that for the two sweeps of sad_lr."""
     px = H * W
     if name == "sad_wta":
         return _bound(3 * px, 6 * px * (maxd + 1), I32_OPS)
-    return _bound(2 * px + 8 * px, 12 * px * (maxd + 1), I32_OPS)
+    maps = 5 if name == "sad_lr_costs" else 2
+    return _bound(2 * px + 4 * maps * px, 12 * px * (maxd + 1), I32_OPS)
 
 
 def main() -> int:

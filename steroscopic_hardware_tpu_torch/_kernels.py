@@ -25,6 +25,7 @@ import os
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -126,10 +127,8 @@ def load() -> ctypes.CDLL:
                                    + [ptr])
             lib.sad_lr.restype = i32
             f32 = ctypes.c_float
-            lib.sgm_max_d.argtypes = []
-            lib.sgm_max_d.restype = i32
             lib.sgm_aggregate.argtypes = ([ptr] * 2 + [i32] * 5
-                                          + [f32, f32, ptr])
+                                          + [f32, f32] + [i32] * 5 + [ptr])
             lib.sgm_aggregate.restype = i32
             lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
             lib.sgm_transpose_add.restype = i32
@@ -239,6 +238,58 @@ def _check_volume(t, name, ndim=3):
     return _TYPE_CODES[t.dtype]
 
 
+# B3's two kernels (csrc/sgm.cu). The lane-group kernel: the d values per
+# lane compiled there and its largest block; 8 lanes of 17 hold D <= 136.
+# Above, the staged kernel: a warp per (direction, scan column), up to 9 d
+# values a lane, 8 columns a block of 512 threads.
+AGG_DPTS = (5, 9, 17)
+AGG_BLOCK_MAX = 256
+AGG_LANES_MAX_D = 8 * AGG_DPTS[-1]
+AGG_MAX_D = 32 * 9
+STAGED_COLUMNS, STAGED_BLOCK = 8, 512
+
+
+class AggregatePlan(NamedTuple):
+    staged: int  # 1: the staged kernel; 0: the lane-group kernel
+    lanes: int   # G: lanes per scan column, a power of two dividing 32
+    dpt: int     # d values per lane; lanes * dpt >= D
+    block: int   # threads per block
+    grid: int    # blocks: exactly enough for K columns
+
+
+def sgm_aggregate_plan(D: int, S: int, K: int, sms: int) -> AggregatePlan:
+    """Launch plan of ``sgm_aggregate`` for a (D, S, K) volume on a card of
+    ``sms`` multiprocessors.
+
+    Up to D = 136 the lane-group kernel. A warp spans 32 / lanes scan
+    columns, so each of its loads and stores touches rows of 32 / lanes
+    elements: more lanes per column multiply the memory transactions,
+    fewer cost registers (17 d values per lane is the most that compiles
+    without spilling). So 4 lanes up to D = 36, else 8, each holding the
+    smallest compiled chunk that covers D. The block is the largest power
+    of two (32..256 threads) that still gives 7/8 as many blocks as SMs:
+    about one block per SM, each block's columns aligned to whole 32-byte
+    sectors of a row. Above D = 136 the lane-group kernel would need 16
+    lanes a column and loses to the staged kernel, which takes the rest.
+    Raises ValueError for a volume neither kernel takes."""
+    if D > AGG_MAX_D:
+        raise ValueError(f"D = {D} above the kernel's {AGG_MAX_D}")
+    if min(D, S, K) < 1:
+        raise ValueError(f"empty volume {(D, S, K)}")
+    if D > AGG_LANES_MAX_D:
+        return AggregatePlan(1, 32, -(-D // 32), STAGED_BLOCK,
+                             -(-K // STAGED_COLUMNS))
+    if D * S * K >= 2 ** 32:
+        raise ValueError(f"volume {(D, S, K)} has 2^32 elements or more")
+    lanes = 4 if D <= 4 * 9 else 8
+    dpt = min(n for n in AGG_DPTS if lanes * n >= D)
+    block = 32
+    while (block < AGG_BLOCK_MAX
+           and -(-K * lanes // (2 * block)) * 8 >= 7 * sms):
+        block *= 2
+    return AggregatePlan(0, lanes, dpt, block, -(-K // (block // lanes)))
+
+
 def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
     """(D, S, K) forward + backward SGM aggregation along S, stored in
     ``out_dtype`` (uint8 / bfloat16 / float32)."""
@@ -247,15 +298,15 @@ def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
         raise ValueError(f"out_dtype must be uint8, bfloat16 or float32, "
                          f"got {out_dtype}")
     D, S, K = cost.shape
+    sms = torch.cuda.get_device_properties(cost.device).multi_processor_count
+    plan = sgm_aggregate_plan(D, S, K, sms)
     with torch.cuda.device(cost.device):
         lib = load()
-        if D > lib.sgm_max_d():
-            raise ValueError(f"D = {D} above the kernel's {lib.sgm_max_d()}")
         out = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         err = lib.sgm_aggregate(cost.data_ptr(), out.data_ptr(), D, S, K,
                                 in_type, _TYPE_CODES[out_dtype], float(p1),
-                                float(p2), stream)
+                                float(p2), *plan, stream)
     _raise_on(lib, err, "sgm_aggregate")
     launches["sgm_aggregate"] += 1
     return out

@@ -18,23 +18,43 @@
 // plain version bit for bit. Each direction is stored in the output type
 // and the two are added in it (uint8 widened to int, bfloat16 through
 // float32 and rounded), as the TPU kernel's epilogue adds fwd + bwd.
-// Design: one warp per (direction, scan column) carries the D path values
-// in registers, VPL = ceil(D / 32) contiguous d per lane; the d +- 1
-// neighbours across lanes come from __shfl_up/down_sync and min_d' from a
-// butterfly reduction (the warp-per-scanline mapping of arXiv:1610.04121).
-// A block takes AGG_TK = 8 adjacent columns (16 warps: both directions) so
-// that each step's (D, 8) slab is read and written coalesced along k
-// through shared memory; the next step's slab is prefetched into
-// registers while the warps run the recursion. Forward and backward meet
-// in the middle of the column: the first direction to reach a position
-// stores its raw path value, the second reads it back and stores the sum
-// (the same thread owns the element at both visits, so program order
-// makes the write visible). Bound on the H100: memory, D * S * K elements
-// read once and written once (e.g. 1080p d64 bf16 -> bf16: 539 MB,
-// 161 us at 3.35 TB/s). This kernel moves the output twice more (the raw
-// half and its read-back) and runs S dependent steps per column, so it
-// is latency- and shuffle-bound well above that; the 1080p scanline count
-// (1920 or 1080 columns) fills the card with 240 or 135 blocks.
+// Two kernels; the launch plan (_kernels.sgm_aggregate_plan) picks one by D.
+// Lane-group kernel (D <= 136): a group of G lanes (4 or 8, a power of
+// two) owns one scan column; each lane holds DPT contiguous d values of
+// both directions in registers and runs the two directions interleaved
+// (forward at s = i, backward at s = S - 1 - i: two independent dependency
+// chains). min_d' is a min inside the lane and log2(G) xor shuffles; the
+// d +- 1 neighbours at a chunk's ends come from __shfl_up/down_sync, +INF
+// at the group's ends (the lane-group form of the warp-per-scanline
+// mapping of arXiv:1610.04121). Each lane loads and stores its own d
+// values in global memory: a warp spans 32 / G adjacent columns, so every
+// (d, s) row it touches is 32 / G consecutive elements. No shared memory
+// and no block barrier: the lanes of a column meet only in shuffles. The
+// cost of both directions is loaded two steps ahead into a ring of
+// registers, held in the raw stored type (widened where it is used) with
+// 32-bit offsets, so that 17 d values a lane still fit in registers.
+// Forward and backward meet in the middle of the column: the first
+// direction to reach a row stores its raw path value, the second reads it
+// back (also two steps ahead, or from registers where the directions
+// cross) and stores the sum; the same thread owns the element at both
+// visits, so program order makes the write visible.
+// Bound on the H100: memory, D * S * K elements read once and written once
+// (e.g. 1080p d64 bf16 -> bf16: 539 MB, 161 us at 3.35 TB/s). This kernel
+// reads the cost once per direction and writes and reads back the raw
+// half, and in this d-major layout each warp access touches G rows of
+// 32 / G columns: G 32-byte sectors where two would hold 32 bf16 values.
+// It is bound by those memory transactions, so fewer lanes a column run
+// faster as long as the d values fit in registers (1080p d64 on 8 lanes:
+// 2.1 ms vertical). Past 8 lanes of 17 (D > 136) it needs 16 lanes, rows
+// of 2 columns, and loses to the staged kernel (d256: 27 ms against 8.5).
+// Staged kernel (D > 136): one warp per (direction, scan column) carries
+// the D path values, VPL = ceil(D / 32) contiguous d a lane, with the same
+// shuffles over the whole warp. A block takes AGG_TK = 8 adjacent columns
+// (16 warps: both directions), so each step's (D, 8) slab is read and
+// written coalesced along k through shared memory with two block barriers
+// a step; the next step's slab is prefetched into registers during the
+// recursion. It meets in the middle as above, and is latency-bound: S
+// dependent steps of barriers and shuffles per column.
 //
 // B4, sgm_transpose_add. out[d, a, b] = aT[d, b, a] (+ bb[d, a, b]) in float32,
 // stored in the output type. A 32 x 32 tile per block, read coalesced
@@ -95,18 +115,175 @@ __device__ __forceinline__ float add_stored(float a, float b) { return __fadd_rn
 
 // -- B3 ------------------------------------------------------------------------
 
+// The largest D either kernel takes: the staged kernel's 32 lanes of 9 d
+// values. The lane-group kernel is compiled for 5, 9 and 17 d values a
+// lane and blocks of up to AGG_BLOCK_MAX threads.
+constexpr int AGG_DMAX = 288;
+constexpr int AGG_BLOCK_MAX = 256;
+
+// Lane-group kernel. One thread: the d values d0 .. d0 + DPT - 1 of one
+// scan column, in both directions (forward at s = i, backward at
+// s = S - 1 - i: two independent chains); the other G - 1 lanes of its
+// group hold the column's other chunks. Ring slot Q of cf / cb holds the
+// cost of the steps i with i % 2 == Q, loaded two steps ahead; slot Q of
+// xf / xb the raw partials (the other direction's stored value) those
+// steps add to.
+template <typename Tin, typename Tout, int DPT>
+struct AggLane {
+  const Tin* cost;
+  Tout* out;
+  uint32_t base, SK, K;  // element offsets (the volume has < 2^32 elements):
+                         // base is (d0, 0, k)
+  int S, g, G, nv;       // nv: valid d values of this lane (0 past K)
+  float p1, p2;
+  float Lf[DPT], Lb[DPT];
+  Tin cf[2][DPT], cb[2][DPT];  // raw: widened where used, so that no
+  Tout xf[2][DPT], xb[2][DPT];  // instruction waits on a load in flight
+
+  __device__ __forceinline__ void load_cost(Tin (&c)[DPT], int s) const {
+    const uint32_t o = base + static_cast<uint32_t>(s) * K;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j)
+      if (j < nv) c[j] = cost[o + j * SK];
+  }
+
+  __device__ __forceinline__ void load_raw(Tout (&x)[DPT], int s) const {
+    const uint32_t o = base + static_cast<uint32_t>(s) * K;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j)
+      if (j < nv) x[j] = out[o + j * SK];
+  }
+
+  // L(s - 1) -> L(s) from the cost row c of s, in the TPU kernel's order
+  __device__ __forceinline__ void recurse(float (&L)[DPT], const Tin (&c)[DPT]) const {
+    float m = L[0];
+#pragma unroll
+    for (int j = 1; j < DPT; ++j) m = fminf(m, L[j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < G) m = fminf(m, __shfl_xor_sync(FULL, m, o));
+    float up_edge = __shfl_down_sync(FULL, L[0], 1);  // d = d0 + DPT
+    float dn = __shfl_up_sync(FULL, L[DPT - 1], 1);   // d = d0 - 1
+    if (g == G - 1) up_edge = INF;
+    if (g == 0) dn = INF;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const float up = j + 1 < DPT ? L[j + 1 < DPT ? j + 1 : j] : up_edge;
+      const float best =
+          fminf(fminf(L[j], __fadd_rn(fminf(up, dn), p1)), __fadd_rn(m, p2));
+      dn = L[j];
+      L[j] = j < nv ? __fsub_rn(__fadd_rn(widen(c[j]), best), m) : INF;
+    }
+  }
+
+  template <int Q>
+  __device__ __forceinline__ void step(int i) {
+    const int sf = i, sb = S - 1 - i;
+    if (Q == 0 && i == 0) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        Lf[j] = j < nv ? widen(cf[Q][j]) : INF;
+        Lb[j] = j < nv ? widen(cb[Q][j]) : INF;
+      }
+    } else {
+      recurse(Lf, cf[Q]);
+      recurse(Lb, cb[Q]);
+    }
+    if (i + 2 < S) {  // the cost two steps ahead, into the slot just used
+      load_cost(cf[Q], sf + 2);
+      load_cost(cb[Q], sb - 2);
+    }
+    // store: raw where the other direction has not been yet, the sum where
+    // it has (or is, in the middle row of an odd S)
+    const uint32_t of = base + static_cast<uint32_t>(sf) * K;
+    const uint32_t ob = base + static_cast<uint32_t>(sb) * K;
+    if (sf < sb) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        if (j < nv) {
+          out[of + j * SK] = narrow<Tout>(Lf[j]);
+          out[ob + j * SK] = narrow<Tout>(Lb[j]);
+        }
+      if (sf + 1 == sb) {  // the directions cross before step i + 1
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          xf[1 - Q][j] = narrow<Tout>(Lb[j]);
+          xb[1 - Q][j] = narrow<Tout>(Lf[j]);
+        }
+      }
+    } else if (sf == sb) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        if (j < nv) out[of + j * SK] = add_stored(narrow<Tout>(Lf[j]), narrow<Tout>(Lb[j]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        if (j < nv) {
+          out[of + j * SK] = add_stored(xf[Q][j], narrow<Tout>(Lf[j]));
+          out[ob + j * SK] = add_stored(xb[Q][j], narrow<Tout>(Lb[j]));
+        }
+    }
+    // the raw partials of step t = i + 2, once this thread has stored
+    // both (at step S - 1 - t <= i; program order makes them visible)
+    if (i + 2 < S && 2 * (i + 2) > S) {
+      load_raw(xf[Q], sf + 2);
+      load_raw(xb[Q], sb - 2);
+    }
+  }
+};
+
+template <typename Tin, typename Tout, int DPT>
+__global__ void __launch_bounds__(AGG_BLOCK_MAX)
+    sgm_aggregate_lanes_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out,
+                               int D, int S, int K, int G, float p1, float p2) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = t / G;
+  AggLane<Tin, Tout, DPT> a;
+  a.cost = cost;
+  a.out = out;
+  a.S = S;
+  a.K = K;
+  a.G = G;
+  a.g = t % G;
+  a.p1 = p1;
+  a.p2 = p2;
+  a.SK = static_cast<uint32_t>(S) * static_cast<uint32_t>(K);
+  const int d0 = a.g * DPT;
+  a.nv = k < K ? max(0, min(DPT, D - d0)) : 0;
+  a.base = static_cast<uint32_t>(d0) * a.SK + min(k, K - 1);
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    a.cf[0][j] = a.cb[0][j] = a.cf[1][j] = a.cb[1][j] = Tin();
+    a.xf[0][j] = a.xb[0][j] = a.xf[1][j] = a.xb[1][j] = narrow<Tout>(0.f);
+  }
+  a.load_cost(a.cf[0], 0);
+  a.load_cost(a.cb[0], S - 1);
+  if (S > 1) {
+    a.load_cost(a.cf[1], 1);
+    a.load_cost(a.cb[1], S - 2);
+  }
+  for (int i = 0; i < S; i += 2) {
+    a.template step<0>(i);
+    if (i + 1 < S) a.template step<1>(i + 1);
+  }
+}
+
+// Staged kernel (D > 8 lanes x 17). A warp per (direction, scan column)
+// holds the D path values, vpl contiguous d a lane; AGG_TK adjacent
+// columns a block, each step's (D, AGG_TK) slab read and written coalesced
+// along k through shared memory, the next slab prefetched into registers
+// during the recursion.
 constexpr int AGG_TK = 8;                  // scan columns per block
 constexpr int AGG_THREADS = 64 * AGG_TK;   // a warp per (direction, column)
 constexpr int AGG_VMAX = 9;                // d values per lane: D <= 288
-constexpr int AGG_DMAX = 32 * AGG_VMAX;
 constexpr int AGG_EMAX = (AGG_DMAX * AGG_TK + AGG_THREADS - 1) / AGG_THREADS;
 
 __host__ __device__ inline int agg_row(int vpl) { return 32 * vpl + 1; }
 
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(AGG_THREADS)
-    sgm_aggregate_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out,
-                         int D, int S, int K, int vpl, float p1, float p2) {
+    sgm_aggregate_staged_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out,
+                                int D, int S, int K, int vpl, float p1, float p2) {
   // cs / os: [direction][column][row of agg_row(vpl) floats], the staged
   // cost slab of this step and the path values to store
   extern __shared__ float smem[];
@@ -234,25 +411,50 @@ __global__ void __launch_bounds__(AGG_THREADS)
   }
 }
 
+// A launch plan (see sgm_aggregate below); checked before it is launched.
+struct AggPlan {
+  int staged, G, dpt, block, grid;
+};
+
 template <typename Tin, typename Tout>
-cudaError_t launch_aggregate(const void* cost, void* out, int D, int S, int K,
-                             float p1, float p2, cudaStream_t stream) {
-  const int vpl = (D + 31) / 32;
-  const size_t smem = sizeof(float) * 4 * AGG_TK * agg_row(vpl);
-  sgm_aggregate_kernel<Tin, Tout><<<(K + AGG_TK - 1) / AGG_TK, AGG_THREADS, smem,
-                                    stream>>>(
-      static_cast<const Tin*>(cost), static_cast<Tout*>(out), D, S, K, vpl, p1, p2);
+cudaError_t launch_aggregate(const AggPlan& p, const void* cost, void* out, int D,
+                             int S, int K, float p1, float p2, cudaStream_t stream) {
+  const Tin* c = static_cast<const Tin*>(cost);
+  Tout* o = static_cast<Tout*>(out);
+  if (p.staged) {
+    const size_t smem = sizeof(float) * 4 * AGG_TK * agg_row(p.dpt);
+    sgm_aggregate_staged_kernel<Tin, Tout>
+        <<<p.grid, AGG_THREADS, smem, stream>>>(c, o, D, S, K, p.dpt, p1, p2);
+    return cudaGetLastError();
+  }
+  switch (p.dpt) {
+    case 5:
+      sgm_aggregate_lanes_kernel<Tin, Tout, 5>
+          <<<p.grid, p.block, 0, stream>>>(c, o, D, S, K, p.G, p1, p2);
+      break;
+    case 9:
+      sgm_aggregate_lanes_kernel<Tin, Tout, 9>
+          <<<p.grid, p.block, 0, stream>>>(c, o, D, S, K, p.G, p1, p2);
+      break;
+    case 17:
+      sgm_aggregate_lanes_kernel<Tin, Tout, 17>
+          <<<p.grid, p.block, 0, stream>>>(c, o, D, S, K, p.G, p1, p2);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 template <typename Tin>
-cudaError_t aggregate_out(int out_type, const void* cost, void* out, int D, int S,
-                          int K, float p1, float p2, cudaStream_t stream) {
+cudaError_t aggregate_out(int out_type, const AggPlan& p, const void* cost, void* out,
+                          int D, int S, int K, float p1, float p2, cudaStream_t stream) {
   switch (out_type) {
-    case T_U8: return launch_aggregate<Tin, uint8_t>(cost, out, D, S, K, p1, p2, stream);
+    case T_U8:
+      return launch_aggregate<Tin, uint8_t>(p, cost, out, D, S, K, p1, p2, stream);
     case T_BF16:
-      return launch_aggregate<Tin, __nv_bfloat16>(cost, out, D, S, K, p1, p2, stream);
-    case T_F32: return launch_aggregate<Tin, float>(cost, out, D, S, K, p1, p2, stream);
+      return launch_aggregate<Tin, __nv_bfloat16>(p, cost, out, D, S, K, p1, p2, stream);
+    case T_F32:
+      return launch_aggregate<Tin, float>(p, cost, out, D, S, K, p1, p2, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -383,20 +585,36 @@ cudaError_t launch_epilogue(const void* agg_v, const void* agg_ht, void* out, in
 
 extern "C" {
 
-// The largest D that sgm_aggregate takes (AGG_VMAX values per lane).
-int sgm_max_d() { return AGG_DMAX; }
-
 // out (D, S, K) = forward + backward aggregation of cost (D, S, K) along S,
-// both contiguous; in_type / out_type: 0 uint8, 1 bfloat16, 2 float32.
+// both contiguous; in_type / out_type: 0 uint8, 1 bfloat16, 2 float32. The
+// launch plan: staged 0, the lane-group kernel with G lanes (a power of two
+// <= 32) per scan column, dpt (5, 9 or 17) d values per lane, G * dpt >= D,
+// block threads (a multiple of 32 up to AGG_BLOCK_MAX), grid blocks
+// (exactly enough for K columns), on a volume of fewer than 2^32 elements;
+// or staged 1, the staged kernel with G 32, dpt ceil(D / 32), block
+// AGG_THREADS and grid ceil(K / AGG_TK). Any other plan is refused.
 int sgm_aggregate(const void* cost, void* out, int D, int S, int K, int in_type,
-                  int out_type, float p1, float p2, void* stream) {
-  if (D < 1 || D > AGG_DMAX) return cudaErrorInvalidValue;
+                  int out_type, float p1, float p2, int staged, int G, int dpt,
+                  int block, int grid, void* stream) {
+  if (D < 1 || D > AGG_DMAX || S < 1 || K < 1) return cudaErrorInvalidValue;
+  bool ok;
+  if (staged) {
+    ok = G == 32 && dpt == (D + 31) / 32 && block == AGG_THREADS &&
+         grid == (K + AGG_TK - 1) / AGG_TK;
+  } else {
+    ok = G >= 1 && G <= 32 && (G & (G - 1)) == 0 && G * dpt >= D && block >= 32 &&
+         block <= AGG_BLOCK_MAX && block % 32 == 0 &&
+         grid == (K + block / G - 1) / (block / G) &&
+         static_cast<unsigned long long>(D) * S * K <= 0xffffffffull;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  const AggPlan p{staged, G, dpt, block, grid};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_type) {
-    case T_U8: return aggregate_out<uint8_t>(out_type, cost, out, D, S, K, p1, p2, s);
+    case T_U8: return aggregate_out<uint8_t>(out_type, p, cost, out, D, S, K, p1, p2, s);
     case T_BF16:
-      return aggregate_out<__nv_bfloat16>(out_type, cost, out, D, S, K, p1, p2, s);
-    case T_F32: return aggregate_out<float>(out_type, cost, out, D, S, K, p1, p2, s);
+      return aggregate_out<__nv_bfloat16>(out_type, p, cost, out, D, S, K, p1, p2, s);
+    case T_F32: return aggregate_out<float>(out_type, p, cost, out, D, S, K, p1, p2, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,0 +1,196 @@
+"""SGM probe on one GPU: times B3 (``sgm_aggregate``) through its wrapper at
+1920x1080, B3 under every launch plan its kernels take (``--plans``), and
+the device time of served SGM frames by kernel (``--profile``).
+
+    python -m steroscopic_hardware_tpu_torch.sgm_probe [--plans] [--profile] \
+        [--maxd 64] [--out FILE]
+
+The first line is the card (``nvidia-smi`` name and power limit). Then one
+JSON line per measurement; with ``--out`` all of them also go there as a
+JSON list. Times are CUDA events, the median of 20 after 3 warm-ups. B3
+runs on a seeded random cost volume in the served chain's four tiers: the
+vertical pass (D, H, W) from bfloat16, the horizontal one (D, W, H) from
+uint8, each stored in bfloat16 (the served chain) or uint8 (the fused
+one). ``--plans`` checks every plan's output against the wrapper's before
+timing it. ``--profile`` runs ``models.blockmatch.sgm_one`` (without and
+with the LR check) on a seeded textured pair, 10 frames after 3 warm-ups,
+under ``torch.profiler``: per kernel its device time and launches per
+frame, and per frame the sum of all kernels' device time beside the wall
+time between two CUDA events around the 10 frames, and beside the frame's
+time without the profiler (the median of 10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+H, W = 1080, 1920
+SEED = 20261016
+
+
+def time_ms(fn, warmup=3, reps=20):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _tiers(maxd):
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(SEED)
+    D = maxd + 1
+    cost_t = torch.from_numpy(
+        rng.integers(0, 25, (D, W, H), dtype=np.uint8)).cuda()
+    cost = sgm.transpose_add(cost_t, out_dtype=torch.bfloat16)
+    u8, bf16 = torch.uint8, torch.bfloat16
+    return [("vertical bf16->bf16", cost, bf16),
+            ("horizontal u8->bf16", cost_t, bf16),
+            ("vertical bf16->u8", cost, u8),
+            ("horizontal u8->u8", cost_t, u8)]
+
+
+def probe_wrapper(maxd):
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rows = []
+    for what, c, outd in _tiers(maxd):
+        ms = time_ms(lambda: sgm.aggregate_axis(c, 1.0, 8.0, out_dtype=outd))
+        rows.append({"kernel": "sgm_aggregate", "stage": what,
+                     "maxd": maxd, "ms": ms})
+    return rows
+
+
+def probe_plans(maxd):
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    lib = _kernels.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    D = maxd + 1
+    rows = []
+    for what, c, outd in _tiers(maxd):
+        want = sgm.aggregate_axis(c, 1.0, 8.0, out_dtype=outd)
+        out = torch.empty_like(want)
+        _, S, K = c.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        plans = [_kernels.AggregatePlan(
+            1, 32, -(-D // 32), _kernels.STAGED_BLOCK,
+            -(-K // _kernels.STAGED_COLUMNS))]
+        for lanes in (1, 2, 4, 8, 16, 32):
+            fits = [n for n in _kernels.AGG_DPTS if lanes * n >= D]
+            for block in (32, 64, 128, 256) if fits else ():
+                plans.append(_kernels.AggregatePlan(
+                    0, lanes, min(fits), block, -(-K // (block // lanes))))
+        for plan in plans:
+            def run(plan=plan):
+                err = lib.sgm_aggregate(
+                    c.data_ptr(), out.data_ptr(), D, S, K,
+                    _kernels._TYPE_CODES[c.dtype],
+                    _kernels._TYPE_CODES[outd], 1.0, 8.0, *plan, stream)
+                if err:
+                    raise RuntimeError(f"plan {plan} refused ({err})")
+
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            rows.append({
+                "kernel": "sgm_aggregate", "stage": what, "maxd": maxd,
+                "plan": plan._asdict(),
+                "chosen": plan == _kernels.sgm_aggregate_plan(D, S, K, sms),
+                "equal": bool(torch.equal(out, want)), "ms": time_ms(run)})
+    return rows
+
+
+def probe_profile(maxd, lr, frames=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
+    from steroscopic_hardware_tpu_torch.serve_probe import textured_pair
+
+    left, right = (torch.from_numpy(a).cuda()
+                   for a in textured_pair(SEED, H, W))
+
+    def frame():
+        sgm_one(left, right, max_disparity=maxd, p1=1.0, p2=8.0,
+                subpixel=True, lr=lr, threshold=1.0)
+
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(frames):
+            frame()
+        end.record()
+        end.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = per.get(e.name, (0.0, 0))
+            per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    mode = "sgm-lr-check" if lr else "sgm"
+    rows = [{"profile": mode, "maxd": maxd, "kernel": name[:160],
+             "ms_per_frame": us / 1e3 / frames, "launches_per_frame": n / frames}
+            for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])]
+    rows.append({"profile": mode, "maxd": maxd, "kernel": "all kernels",
+                 "ms_per_frame": sum(us for us, _ in per.values()) / 1e3 / frames,
+                 "launches_per_frame": sum(n for _, n in per.values()) / frames,
+                 "wall_ms_per_frame": start.elapsed_time(end) / frames,
+                 "wall_ms_per_frame_unprofiled": time_ms(frame, reps=frames)})
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--maxd", default="64",
+                    help="comma-separated max disparities (default 64)")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sgm_probe needs a CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    rows = []
+    for maxd in (int(m) for m in args.maxd.split(",")):
+        found = probe_wrapper(maxd)
+        if args.plans:
+            found += probe_plans(maxd)
+        if args.profile:
+            found += (probe_profile(maxd, lr=False)
+                      + probe_profile(maxd, lr=True))
+        for row in found:
+            row["card"] = card
+            print(json.dumps(row), flush=True)
+        rows += found
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

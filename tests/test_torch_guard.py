@@ -189,13 +189,28 @@ def _volume(seed, shape, high=25):
     return torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint8))
 
 
+# (D, S, K): the launch plan's edges (D at each boundary of the lanes per
+# column and of the compiled chunk sizes; S of 1, 2 and odd, for the middle
+# row; K ragged against a warp's and a block's columns) beside volumes of
+# the served shapes
+AGGREGATE_SHAPES = [
+    (17, 37, 53), (17, 53, 37), (257, 40, 300), (65, 1080, 64),
+    (1, 7, 33), (2, 2, 45), (20, 1, 40), (21, 3, 31), (33, 2, 65),
+    (36, 5, 17), (37, 9, 33), (40, 4, 31), (41, 11, 50), (65, 1, 100),
+    (72, 3, 21), (73, 6, 5), (129, 7, 13), (136, 2, 7), (137, 13, 9),
+    (144, 2, 3), (145, 9, 11), (257, 5, 6), (272, 3, 35), (273, 4, 3),
+    (288, 11, 19)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(17, 37, 53), (17, 53, 37),
-                                   (257, 40, 300), (65, 1080, 64)])
+@pytest.mark.parametrize("shape", AGGREGATE_SHAPES)
 @pytest.mark.parametrize("in_dtype,out_dtype,P", [
     (torch.uint8, torch.uint8, (1.0, 8.0)),
+    (torch.bfloat16, torch.uint8, (1.0, 8.0)),
     (torch.bfloat16, torch.bfloat16, (1.0, 8.0)),
-    (torch.uint8, torch.float32, (0.7, 5.3))])
+    (torch.uint8, torch.bfloat16, (1.0, 8.0)),
+    (torch.uint8, torch.float32, (0.7, 5.3)),
+    (torch.bfloat16, torch.float32, (0.7, 5.3))])
 def test_sgm_aggregate_equals_plain(cuda, shape, in_dtype, out_dtype, P):
     cost = _volume(0, shape).to(cuda).to(in_dtype)
     got = sgm.aggregate_axis(cost, *P, out_dtype=out_dtype)
@@ -256,6 +271,26 @@ def test_sgm_launchers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="above the kernel"):
         k.sgm_aggregate(_volume(0, (289, 2, 2)).to(cuda), 1.0, 8.0,
                         torch.uint8)
+    # a launch plan the kernel cannot take is refused, not run
+    lib, vol = k.load(), _volume(0, (200, 8, 8)).to(cuda)
+    out = torch.empty_like(vol)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    lanes = k.sgm_aggregate_plan(17, 8, 8, sms=132)
+    staged = k.sgm_aggregate_plan(200, 8, 8, sms=132)
+    for D, plan in ((17, lanes._replace(lanes=3)), (17, lanes._replace(dpt=11)),
+                    (17, lanes._replace(lanes=1, dpt=9)),
+                    (17, lanes._replace(block=96 + 256)),
+                    (17, lanes._replace(grid=lanes.grid + 1)),
+                    (200, staged._replace(dpt=8)),
+                    (200, staged._replace(block=256)),
+                    (200, staged._replace(grid=staged.grid + 1)),
+                    (289, k.AggregatePlan(1, 32, 10, 512, 1))):
+        assert lib.sgm_aggregate(vol.data_ptr(), out.data_ptr(), D, 8, 8, 0,
+                                 0, 1.0, 8.0, *plan, stream) != 0, plan
+    for D, plan in ((17, lanes), (17, k.AggregatePlan(1, 32, 1, 512, 1)),
+                    (200, staged)):
+        assert lib.sgm_aggregate(vol.data_ptr(), out.data_ptr(), D, 8, 8, 0,
+                                 0, 1.0, 8.0, *plan, stream) == 0, plan
     with pytest.raises(ValueError, match="b must be"):
         k.sgm_transpose_add(cost, cost.to(torch.bfloat16), torch.float32)
     with pytest.raises(ValueError, match="agg_ht must be"):

@@ -19,6 +19,7 @@ from steroscopic_hardware_tpu.models.blockmatch import (
 )
 from steroscopic_hardware_tpu.ops import sgm as jax_sgm
 from steroscopic_hardware_tpu.utils.params import Parameters as JaxParameters
+from steroscopic_hardware_tpu_torch import _kernels
 from steroscopic_hardware_tpu_torch.models.blockmatch import (
     SGMMatcher,
     sgm_serve_step,
@@ -84,6 +85,37 @@ def test_aggregate_single_row_and_tiny_d():
             jnp.asarray(cost, jnp.float32), 1.0, 8.0, axis=1))
         got = sgm.aggregate_axis_plain(torch.from_numpy(cost), 1.0, 8.0)
         assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("D", range(1, _kernels.AGG_MAX_D + 1))
+def test_sgm_aggregate_plan(D):
+    """B3's launch plan: the lanes of a column (a power of two dividing 32)
+    cover [0, D) exactly once in chunks of a size its kernel takes, and the
+    grid holds every column with no block left idle; the staged kernel
+    takes exactly the D that 8 lanes of the lane-group kernel cannot."""
+    for S, K in ((1, 1), (2, 33), (1080, 1920)):
+        plan = _kernels.sgm_aggregate_plan(D, S, K, sms=132)
+        assert 32 % plan.lanes == 0
+        chunks = [range(g * plan.dpt, min(D, (g + 1) * plan.dpt))
+                  for g in range(plan.lanes)]
+        assert sorted(d for c in chunks for d in c) == list(range(D))
+        assert plan.staged == (D > _kernels.AGG_LANES_MAX_D)
+        if plan.staged:
+            assert plan.lanes == 32 and plan.dpt == -(-D // 32) <= 9
+            assert plan.block == _kernels.STAGED_BLOCK
+            cols = _kernels.STAGED_COLUMNS
+        else:
+            assert plan.lanes <= 8 and plan.dpt in _kernels.AGG_DPTS
+            assert plan.block % 32 == 0
+            assert plan.block <= _kernels.AGG_BLOCK_MAX
+            cols = plan.block // plan.lanes
+        assert (plan.grid - 1) * cols < K <= plan.grid * cols
+
+
+def test_sgm_aggregate_plan_refuses_d289():
+    assert _kernels.sgm_aggregate_plan(288, 2, 2, sms=132).lanes == 32
+    with pytest.raises(ValueError, match="above the kernel"):
+        _kernels.sgm_aggregate_plan(289, 2, 2, sms=132)
 
 
 # -- B4 -----------------------------------------------------------------------

@@ -9,9 +9,14 @@ both engines.
 Phases, one line each; the first that fails ends the run with a non-zero
 exit code:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions,
-     the kernel build time and ptxas's registers and spill bytes per kernel;
+     the kernel build time and ptxas's registers and spill bytes per kernel
+     (fails if a SAD sweep instantiation spills);
   2. SAD kernel == plain on the card, exact, at 1080p and ragged shapes, a
-     4-frame batch, and sad_lr with and without costs;
+     4-frame batch, and sad_lr with and without costs; at the sweep's edges
+     (W not a multiple of its 128-column strip, W < maxD, b63 d511, right-map
+     columns drifting across the right edge, 4 frames of a (4, 2, H, W)
+     upload) all three kernels; and every launch plan of each kernel on a
+     ragged strided batch;
   2s. SGM kernel == plain on the card: sgm_aggregate in its six storage
      tiers (fractional penalties in float32), sgm_transpose_add with and
      without the addend, sgm_epilogue with and without subpixel, at 1080p
@@ -30,8 +35,9 @@ exit code:
   4s. the same with ``--backend sgm``, with and without ``--lr-check``,
      each before and after a retune to maxDisparity 128;
   5. kernel and plain times at 1080p (CUDA events, median of 20 after 3
-     warm-ups), SAD (sad_lr also with costs) and each SGM stage, beside
-     each kernel's bound.
+     warm-ups), SAD (sad_lr also with costs; b16 d64, b7 d128, b31 d256) and
+     each SGM stage, beside each kernel's bound and, for B4, the one
+     PyTorch call that computes the same function.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -107,6 +113,9 @@ def phase_build():
     _kernels.load()
     with open(path[:-3] + ".log") as f:
         usage = ptxas_usage(f.read())
+    spilled = [u for u in usage if u[0].startswith("void sad_") and u[2]]
+    if spilled:
+        fail(f"SAD sweep instantiations spill: {spilled}")
     say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; nvcc build "
         f"{seconds:.2f} s for sm_90a; ptxas: "
@@ -180,12 +189,82 @@ def phase_exact():
         n = _compare("sad_lr", got, want, errs)
         results.append(f"sad_lr F{F} {h}x{w} b{b} d{d} costs={costs}: "
                        f"{n} mismatches")
+    # the sweep's edges, all three kernels; F = 4 from a (4, 2, H, W) upload
+    # (frame stride 2 H W)
+    for F, h, w, b, d in [(1, 64, 300, 16, 64), (1, 40, 50, 7, 128),
+                          (1, 70, 700, 63, 511), (1, 50, 200, 9, 100),
+                          (4, H, W, 16, 64)]:
+        L, R = stacked_pair(rng, F, h, w)
+        kw = dict(block_size=b, max_disparity=d)
+        got = sad.disparity_batch(L, R, **kw)
+        torch.cuda.synchronize()
+        n = _compare("sad_wta", [got], [sad.disparity_plain(L, R, **kw)], errs)
+        results.append(f"sad_wta edge F{F} {h}x{w} b{b} d{d}: {n} mismatches")
+        for costs in (False, True):
+            got = sad.disparity_lr(L, R, with_costs=costs, **kw)
+            torch.cuda.synchronize()
+            want = sad.disparity_raw_lr_plain(L, R, with_costs=costs, **kw)
+            n = _compare("sad_lr", got, want, errs)
+            results.append(f"sad_lr edge F{F} {h}x{w} b{b} d{d} "
+                           f"costs={costs}: {n} mismatches")
+        del L, R, got, want
+    results += check_every_plan(rng, errs)
     bad = [r for r in results if not r.endswith(": 0 mismatches")]
     if bad:
         fail("kernel != plain: " + "; ".join(bad))
     say(f"phase 2 ok: kernel == plain exactly in {len(results)} cases "
         f"({'; '.join(results)})")
     return errs
+
+
+def stacked_pair(rng, F, h, w):
+    """(L, R) as the two planes of one (F, 2, h, w) upload, as the server
+    stacks a batch: frames 2 h w bytes apart."""
+    left, right = random_pair(rng, (F, h, w))
+    both = to_cuda(np.stack([left, right], axis=1))[0]
+    return both[:, 0], both[:, 1]
+
+
+def check_every_plan(rng, errs):
+    """Each kernel under every launch plan it takes (called through the
+    library, not the wrappers) on a ragged strided batch, against plain."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sad
+
+    F, h, w, b, d = 2, 37, 300, 9, 100
+    L, R = stacked_pair(rng, F, h, w)
+    lib = _kernels._ready(L.device)  # sad_init: the shared-memory opt-in
+    stream = torch.cuda.current_stream().cuda_stream
+    kw = dict(block_size=b, max_disparity=d)
+    results = []
+    for name in ("sad_wta", "sad_lr", "sad_lr_costs"):
+        costs = name == "sad_lr_costs"
+        if name == "sad_wta":
+            want = [sad.disparity_plain(L, R, **kw)]
+        else:
+            want = sad.disparity_raw_lr_plain(L, R, with_costs=costs, **kw)
+        plans = [(kv, th, ds)
+                 for kv, ths in _kernels.SAD_COMPILED[name].items()
+                 for th in ths for ds in ((1,) if costs else _kernels.SAD_DS)]
+        for kv, th, ds in plans:
+            outs = [torch.empty_like(x) for x in want]
+            ptrs = [o.data_ptr() for o in outs]
+            args = (L.stride(0), R.stride(0), F, h, w, b, d)
+            if name == "sad_wta":
+                err = lib.sad_wta(L.data_ptr(), R.data_ptr(), *ptrs, *args,
+                                  kv, th, ds, stream)
+            else:
+                err = lib.sad_lr(L.data_ptr(), R.data_ptr(), *ptrs,
+                                 *[None] * (5 - len(ptrs)), *args,
+                                 int(costs), kv, th, ds, stream)
+            torch.cuda.synchronize()
+            if err:
+                fail(f"{name} plan kv {kv} th {th} ds {ds} refused ({err})")
+            n = _compare("sad_wta" if name == "sad_wta" else "sad_lr",
+                         outs, want, errs)
+            results.append(f"{name} plan kv{kv} th{th} ds{ds} F{F} {h}x{w} "
+                           f"b{b} d{d}: {n} mismatches")
+    return results
 
 
 def truth_pair(rng):
@@ -370,8 +449,8 @@ def phase_times(card):
     L, R = to_cuda(*random_pair(rng, (1, H, W)))
     out = {}
     # sad_lr with costs is the kernel under the subpixel SAD path (B2s)
-    cases = [("sad_wta", 16, 64), ("sad_wta", 7, 128), ("sad_lr", 16, 64),
-             ("sad_lr", 7, 128), ("sad_lr_costs", 16, 64)]
+    cases = [(name, b, d) for b, d in ((16, 64), (7, 128), (31, 256))
+             for name in ("sad_wta", "sad_lr", "sad_lr_costs")]
     for name, b, d in cases:
         kw = dict(block_size=b, max_disparity=d)
         if name == "sad_wta":
@@ -647,7 +726,9 @@ def phase_sgm_times(card, maxd=64):
         ("sgm_transpose_add", "cost u8->bf16",
          lambda: sgm.transpose_add(cost_t, out_dtype=bf16),
          lambda: sgm.transpose_add_plain(cost_t, out_dtype=bf16),
-         V * (1 + 2), 0, None),
+         V * (1 + 2), 0,
+         lambda: torch.empty((D, H, W), dtype=bf16, device="cuda").copy_(
+             cost_t.transpose(1, 2))),
         ("sgm_aggregate", "vertical bf16->bf16",
          lambda: sgm.aggregate_axis(cost, 1.0, 8.0, out_dtype=bf16),
          lambda: sgm.aggregate_axis_plain(cost, 1.0, 8.0, out_dtype=bf16),
@@ -696,13 +777,20 @@ def phase_sgm_times(card, maxd=64):
 def sad_bound(name, maxd=64):
     """(bound_ms, bound_by) of one 1080p frame: two uint8 images in, the
     uint8 map (sad_wta), two int32 maps (sad_lr) or five (sad_lr_costs)
-    out; about 6 int32 operations per pixel and disparity with sliding
-    window sums, twice that for the two sweeps of sad_lr."""
+    out. The function's int32 operations per pixel and disparity: one cost
+    evaluation with sliding window sums, 6 (the vertical window's |a - b|
+    in and out and their add and subtract, the horizontal window's
+    difference, and the minimum of the packed key cost * 512 + d, counted
+    as one); sad_lr adds the right map's minimum over the shifted diagonal,
+    2; with costs the neighbour tracking adds 4 (the d - 1 test and the
+    selects of c_left, c_right and the previous cost). So 6, 8 and 12.
+    Counted once per pixel and d: the kernel's extra work (halo columns,
+    window rows rebuilt per tile) is not the function's."""
     px = H * W
     if name == "sad_wta":
         return _bound(3 * px, 6 * px * (maxd + 1), I32_OPS)
-    maps = 5 if name == "sad_lr_costs" else 2
-    return _bound(2 * px + 4 * maps * px, 12 * px * (maxd + 1), I32_OPS)
+    maps, ops = (5, 12) if name == "sad_lr_costs" else (2, 8)
+    return _bound(2 * px + 4 * maps * px, ops * px * (maxd + 1), I32_OPS)
 
 
 def main() -> int:

@@ -19,6 +19,7 @@ launch was refused, and adds one to its count in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -121,9 +122,9 @@ def load() -> ctypes.CDLL:
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.sad_init.argtypes = []
             lib.sad_init.restype = i32
-            lib.sad_wta.argtypes = [ptr, ptr, ptr, i64, i64] + [i32] * 5 + [ptr]
+            lib.sad_wta.argtypes = [ptr, ptr, ptr, i64, i64] + [i32] * 8 + [ptr]
             lib.sad_wta.restype = i32
-            lib.sad_lr.argtypes = ([ptr] * 7 + [i64, i64] + [i32] * 6
+            lib.sad_lr.argtypes = ([ptr] * 7 + [i64, i64] + [i32] * 9
                                    + [ptr])
             lib.sad_lr.restype = i32
             f32 = ctypes.c_float
@@ -182,16 +183,108 @@ def _raise_on(lib, err: int, name: str) -> None:
                            f"{lib.sad_error_string(err).decode()} ({err})")
 
 
+# The SAD sweep (csrc/sad.cu): a block has DS warps, each sweeping one
+# chunk of the d range, and owns TH output rows and 32 KV - 2h output
+# columns of one frame (32 KV columns of vertical sums: the outputs and
+# their 2h halo). The compiled (KV, tile heights) per kernel, mirroring
+# csrc/sad.cu COMPILED, and the warps a block may have.
+SAD_COMPILED = {"sad_wta": {8: (8,)}, "sad_lr": {8: (4,)},
+                "sad_lr_costs": {8: (2,), 4: (4,)}}
+SAD_DS = (1, 2, 4)
+SMEM_LIMIT = 232448  # dynamic shared memory a block can have on sm_90
+GRID_YZ_MAX = 65535
+
+
+class SadPlan(NamedTuple):
+    kv: int      # vertical-sum columns and output slots per lane (K)
+    th: int      # output rows per block
+    ds: int      # warps per block, one d chunk each
+    strip: int   # output columns per block: 32 kv - 2h
+    grid: tuple  # (column strips, row tiles, frames)
+    smem: int    # dynamic shared memory bytes
+
+
+def sad_smem(kernel: str, kv: int, th: int, h: int, max_disparity: int,
+             ds: int, W: int) -> int:
+    """Shared memory of one block (csrc/sad.cu ``Layout``): the L tile and
+    the R tile (maxD columns more), th + 2h rows each, rows congruent to W
+    mod 16 apart with room for their 16-byte phase; four prefix rows of
+    32 kv + 68 ints per warp; and the dL merge rows unless with costs."""
+    def a16(n):
+        return (n + 15) & ~15
+
+    def pitch(width):
+        return a16(width + 32) + 16 + (W & 15)
+    tr = th + 2 * h
+    nv = 32 * kv
+    total = (a16(tr * pitch(nv)) + a16(tr * pitch(nv + max_disparity))
+             + ds * 4 * (nv + 68) * 4)
+    return total + (0 if kernel == "sad_lr_costs" else th * nv * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def sad_plan(F: int, H: int, W: int, block_size: int, max_disparity: int,
+             with_costs: bool, sms: int, kernel: str = "sad_lr") -> SadPlan:
+    """Launch plan of ``sad_wta`` (``kernel="sad_wta"``) or ``sad_lr`` for
+    F frames of (H, W) on a card of ``sms`` multiprocessors.
+
+    The fastest plans measured at 1080p (b7 / b16 / b31 at d64 / d128 /
+    d256, against KV 4 and other tile heights): 256 vertical-sum columns a
+    block (KV 8) and 8 rows for sad_wta, 4 for sad_lr; with costs KV 8
+    and 2 rows up to h = 8, above it KV 4 (half the registers a row) and
+    4 rows, since a short tile rebuilds the (2h+1)-row window sums the
+    more often the larger h is. Warps: one d chunk each; 4 beat 1 and 2
+    at one frame and tie with 2 at eight, so 4, or the fewest that give
+    256 warps per SM, and never a chunk of fewer than 8 d values; with
+    costs one (its neighbour tracking needs the whole sweep). Raises
+    ValueError for a shape the kernels do not take."""
+    if kernel not in ("sad_wta", "sad_lr"):
+        raise ValueError(f"unknown SAD kernel {kernel!r}")
+    if kernel == "sad_wta" and with_costs:
+        raise ValueError("sad_wta has no costs")
+    if min(F, H, W) < 1:
+        raise ValueError(f"empty input {(F, H, W)}")
+    if not 1 <= block_size <= MAX_BLOCK_SIZE:
+        raise ValueError(f"block_size {block_size} outside [1, {MAX_BLOCK_SIZE}]")
+    if not 1 <= max_disparity <= MAX_DISPARITY:
+        raise ValueError(f"max_disparity {max_disparity} outside [1, {MAX_DISPARITY}]")
+    name = "sad_lr_costs" if with_costs else kernel
+    h = block_size // 2
+    if name == "sad_lr_costs":
+        kv, th = (8, 2) if h <= 8 else (4, 4)
+    else:
+        kv, th = 8, 8 if name == "sad_wta" else 4
+    strip = 32 * kv - 2 * h
+    grid = (-(-W // strip), -(-H // th), F)
+    if grid[1] > GRID_YZ_MAX or F > GRID_YZ_MAX:
+        raise ValueError(f"grid {grid} beyond CUDA's limits")
+    ds = 1
+    if not with_costs:
+        while (ds < SAD_DS[-1] and grid[0] * grid[1] * F * ds < 256 * sms
+               and 2 * ds * 8 <= max_disparity + 1):
+            ds *= 2
+    return SadPlan(kv, th, ds, strip, grid,
+                   sad_smem(name, kv, th, h, max_disparity, ds, W))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sad_wta(lefts, rights, block_size: int, max_disparity: int):
     """uint8 (F, H, W) disparity maps, ``d * 255 // max_disparity``."""
     F, H, W = _check_inputs(lefts, rights, block_size, max_disparity)
+    plan = sad_plan(F, H, W, block_size, max_disparity, False,
+                    _sms(lefts.device), kernel="sad_wta")
     with torch.cuda.device(lefts.device):
         lib = _ready(lefts.device)
         out = torch.empty((F, H, W), dtype=torch.uint8, device=lefts.device)
         stream = torch.cuda.current_stream(lefts.device).cuda_stream
         err = lib.sad_wta(lefts.data_ptr(), rights.data_ptr(),
                           out.data_ptr(), lefts.stride(0), rights.stride(0),
-                          F, H, W, block_size, max_disparity, stream)
+                          F, H, W, block_size, max_disparity, plan.kv,
+                          plan.th, plan.ds, stream)
     _raise_on(lib, err, "sad_wta")
     launches["sad_wta"] += 1
     return out
@@ -202,6 +295,8 @@ def sad_lr(lefts, rights, block_size: int, max_disparity: int,
     """int32 (F, H, W) maps (dL, dR) and, with costs, (c_left, c_best,
     c_right) of the left map."""
     F, H, W = _check_inputs(lefts, rights, block_size, max_disparity)
+    plan = sad_plan(F, H, W, block_size, max_disparity, with_costs,
+                    _sms(lefts.device))
     n_out = 5 if with_costs else 2
     with torch.cuda.device(lefts.device):
         lib = _ready(lefts.device)
@@ -211,7 +306,8 @@ def sad_lr(lefts, rights, block_size: int, max_disparity: int,
         stream = torch.cuda.current_stream(lefts.device).cuda_stream
         err = lib.sad_lr(lefts.data_ptr(), rights.data_ptr(), *ptrs,
                          lefts.stride(0), rights.stride(0), F, H, W,
-                         block_size, max_disparity, int(with_costs), stream)
+                         block_size, max_disparity, int(with_costs), plan.kv,
+                         plan.th, plan.ds, stream)
     _raise_on(lib, err, "sad_lr")
     launches["sad_lr"] += 1
     return tuple(outs)

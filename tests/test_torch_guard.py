@@ -135,6 +135,10 @@ def _pair(seed, shape, shift=5):
     (1, 20, 26, 3, 16), (1, 33, 31, 31, 16), (1, 48, 64, 5, 256),
     (1, 37, 130, 16, 64), (3, 70, 300, 9, 48),
     (1, 40, 600, 63, 511),  # the launcher's envelope edge
+    # the sweep's edges: W not a multiple of its 128-column strip, W < maxD,
+    # right-map columns drifting across the right edge, a one-pixel frame
+    (1, 64, 300, 16, 64), (1, 40, 50, 7, 128), (1, 50, 200, 9, 100),
+    (2, 1, 1, 3, 4),
 ])
 def test_kernels_equal_plain(cuda, frames, h, w, block, maxd):
     L, R = _pair(frames, (frames, h, w))
@@ -148,6 +152,86 @@ def test_kernels_equal_plain(cuda, frames, h, w, block, maxd):
         assert len(got) == len(want)
         for g, wnt in zip(got, want):
             assert torch.equal(g, wnt)
+
+
+def _stacked(seed, frames, h, w, device):
+    """(L, R) as the planes of one (frames, 2, h, w) upload: frames 2 h w
+    bytes apart, as the server stacks a batch."""
+    L, R = _pair(seed, (frames, h, w))
+    both = torch.stack([L, R], dim=1).to(device)
+    return both[:, 0], both[:, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,h,w,block,maxd", [
+    (4, 40, 300, 16, 64), (3, 21, 131, 63, 511), (4, 9, 37, 7, 128)])
+def test_kernels_equal_plain_on_strided_frames(cuda, frames, h, w, block,
+                                               maxd):
+    L, R = _stacked(frames, frames, h, w, cuda)
+    assert L.stride(0) == 2 * h * w
+    kw = dict(block_size=block, max_disparity=maxd)
+    assert torch.equal(sad.disparity_batch(L, R, **kw),
+                       sad.disparity_plain(L, R, **kw))
+    for with_costs in (False, True):
+        got = sad.disparity_lr(L, R, with_costs=with_costs, **kw)
+        want = sad.disparity_raw_lr_plain(L, R, with_costs=with_costs, **kw)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,costs", [("sad_wta", False),
+                                          ("sad_lr", False), ("sad_lr", True)])
+def test_every_sad_plan_equals_plain(cuda, kernel, costs):
+    """Each kernel under every launch plan it compiles, called through the
+    library, on a ragged strided batch."""
+    F, h, w, b, d = 2, 37, 300, 9, 100
+    L, R = _stacked(5, F, h, w, cuda)
+    kw = dict(block_size=b, max_disparity=d)
+    if kernel == "sad_wta":
+        want = [sad.disparity_plain(L, R, **kw)]
+    else:
+        want = sad.disparity_raw_lr_plain(L, R, with_costs=costs, **kw)
+    lib = _kernels._ready(L.device)  # sad_init: the shared-memory opt-in
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    name = "sad_lr_costs" if costs else kernel
+    plans = [(kv, th, ds) for kv, ths in _kernels.SAD_COMPILED[name].items()
+             for th in ths for ds in ((1,) if costs else _kernels.SAD_DS)]
+    for plan in plans:
+        outs = [torch.empty_like(x) for x in want]
+        ptrs = [o.data_ptr() for o in outs]
+        args = (L.stride(0), R.stride(0), F, h, w, b, d)
+        if kernel == "sad_wta":
+            err = lib.sad_wta(L.data_ptr(), R.data_ptr(), *ptrs, *args, *plan,
+                              stream)
+        else:
+            err = lib.sad_lr(L.data_ptr(), R.data_ptr(), *ptrs,
+                             *[None] * (5 - len(ptrs)), *args, int(costs),
+                             *plan, stream)
+        assert err == 0, plan
+        assert all(torch.equal(o, x) for o, x in zip(outs, want)), plan
+
+
+@pytest.mark.gpu
+def test_sad_library_refuses_plans_it_has_not_compiled(cuda):
+    L, R = _pair(0, (1, 16, 32))
+    L, R = L.to(cuda), R.to(cuda)
+    lib = _kernels._ready(L.device)  # sad_init: the shared-memory opt-in
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out = torch.empty_like(L)
+    maps = [torch.empty(L.shape, dtype=torch.int32, device=cuda)
+            for _ in range(5)]
+    ptrs = [m.data_ptr() for m in maps]
+    for kv, th, ds, d in ((4, 8, 1, 16), (8, 3, 1, 16), (8, 8, 3, 16),
+                          (8, 8, 8, 16), (8, 8, 4, 2), (5, 8, 1, 16),
+                          (8, 16, 1, 16)):
+        assert lib.sad_wta(L.data_ptr(), R.data_ptr(), out.data_ptr(), 512,
+                           512, 1, 16, 32, 5, d, kv, th, ds, stream) != 0
+    for costs, kv, th, ds in ((0, 4, 4, 1), (0, 8, 8, 1), (1, 4, 8, 1),
+                              (1, 4, 4, 2), (0, 8, 4, 8), (1, 8, 4, 1)):
+        assert lib.sad_lr(L.data_ptr(), R.data_ptr(), *ptrs, 512, 512, 1, 16,
+                          32, 5, 16, costs, kv, th, ds, stream) != 0
+    assert lib.sad_wta(L.data_ptr(), R.data_ptr(), out.data_ptr(), 512, 512,
+                       1, 16, 32, 5, 16, 8, 8, 2, stream) == 0
 
 
 @pytest.mark.gpu

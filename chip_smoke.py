@@ -10,7 +10,7 @@ Phases, one line each; the first that fails ends the run with a non-zero
 exit code:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions,
      the kernel build time and ptxas's registers and spill bytes per kernel
-     (fails if a SAD sweep instantiation spills);
+     (fails if a SAD sweep or sgm_transpose_add instantiation spills);
   2. SAD kernel == plain on the card, exact, at 1080p and ragged shapes, a
      4-frame batch, and sad_lr with and without costs; at the sweep's edges
      (W not a multiple of its 128-column strip, W < maxD, b63 d511, right-map
@@ -20,9 +20,12 @@ exit code:
   2s. SGM kernel == plain on the card: sgm_aggregate in its six storage
      tiers (fractional penalties in float32), sgm_transpose_add with and
      without the addend, sgm_epilogue with and without subpixel, at 1080p
-     d64 and d256 and a ragged 37x53 d16, and sgm_aggregate at the edges of
-     its launch plan (D 1..288, S 1 / 2 / 7, ragged K); integers exact,
-     floats within 1e-5 (max abs error printed);
+     d64 and d256 and a ragged 37x53 d16, sgm_aggregate at the edges of
+     its launch plan (D 1..288, S 1 / 2 / 7, ragged K), and
+     sgm_transpose_add at each access width of its plan, at the 1080-byte
+     uint8 rows of the served cost volume and at ragged tile edges, in all
+     six type combinations; integers exact, floats within 1e-5 (max abs
+     error printed);
   3. ground truth: a 1080p textured pair with a known piecewise-constant
      shift field; the SAD kernels must recover it on >= 90% of the pixels
      farther than maxD + h from any image or region edge;
@@ -113,9 +116,10 @@ def phase_build():
     _kernels.load()
     with open(path[:-3] + ".log") as f:
         usage = ptxas_usage(f.read())
-    spilled = [u for u in usage if u[0].startswith("void sad_") and u[2]]
+    spilled = [u for u in usage if u[2] and u[0].startswith(
+        ("void sad_", "void sgm_transpose_add"))]
     if spilled:
-        fail(f"SAD sweep instantiations spill: {spilled}")
+        fail(f"SAD sweep or B4 instantiations spill: {spilled}")
     say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; nvcc build "
         f"{seconds:.2f} s for sm_90a; ptxas: "
@@ -566,9 +570,65 @@ def phase_sgm_exact():
     results.append(f"sgm_aggregate at {len(edges)} plan edges (D 1..288, S "
                    f"1 / 2 / 7, K 37 / 45 / 33, six tiers): "
                    f"{max(float(r.rsplit(': ', 1)[1]) for r in edges)}")
+    n_b4 = len(results)
+    check_transpose_widths(rng, check)
+    b4 = results[n_b4:]
+    del results[n_b4:]
+    results.append(f"sgm_transpose_add at {len(b4)} access-width, row-phase "
+                   f"and ragged cases: "
+                   f"{max(float(r.rsplit(': ', 1)[1]) for r in b4)}")
+    n_edges += len(b4)
     say(f"phase 2s ok: SGM kernel vs plain, max abs error per case "
         f"({n_edges + len(edges)} cases; {'; '.join(results)})")
     return errs
+
+
+def check_transpose_widths(rng, check):
+    """B4 at each access width of aT, b and out (base pointers 16, 8, 4,
+    2 and 1 bytes aligned; out rows of B odd, 2 and 4 mod 8 and a multiple
+    of 8), at the served cost volume's 1080-byte uint8 rows (8 mod 16),
+    and at ragged tile edges, in all six type combinations, exactly."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    u8, bf16, f32 = torch.uint8, torch.bfloat16, torch.float32
+    forms = [(u8, bf16, False), (bf16, bf16, True), (bf16, f32, True),
+             (f32, f32, True), (u8, f32, True), (f32, bf16, False)]
+
+    def vol(shape, dtype, offset=0, high=120):
+        n = int(np.prod(shape))
+        size = torch.empty((), dtype=dtype).element_size()
+        flat = torch.from_numpy(rng.integers(0, high, n + 16, dtype=np.uint8)
+                                ).cuda().to(dtype)
+        return flat[offset // size:offset // size + n].view(shape)
+
+    def one(tag, aT, b, outd):
+        D, B, A = aT.shape
+        plan = _kernels.transpose_add_plan(
+            D, B, A, aT.dtype, outd, b is not None, 132,
+            _kernels.pointer_alignment(aT.data_ptr()),
+            16 if b is None else _kernels.pointer_alignment(b.data_ptr()))
+        check("sgm_transpose_add",
+              f"{tag} {aT.dtype}{'+b' if b is not None else ''}->{outd} "
+              f"wa{plan.wa} wb{plan.wb} wo{plan.wo}",
+              sgm.transpose_add(aT, b, out_dtype=outd),
+              sgm.transpose_add_plain(aT, b, out_dtype=outd), False)
+
+    for ind, outd, has_b in forms:
+        size = torch.empty((), dtype=ind).element_size()
+        for off in (0, 8, 4, 2, 1):
+            if off % size == 0:
+                D, B, A = 3, 72, 1920
+                one(f"(3, 72, 1920) +{off} B", vol((D, B, A), ind, off),
+                    vol((D, A, B), ind, off) if has_b else None, outd)
+        for D, B, A in ((1, 53, 37), (2, 38, 130), (5, 36, 257),
+                        (7, 130, 66), (1, 1, 1)):
+            one(f"ragged ({D}, {B}, {A})", vol((D, B, A), ind),
+                vol((D, A, B), ind) if has_b else None, outd)
+    for off in (0, 8):
+        one(f"1080-byte rows (65, {W}, {H}) +{off} B",
+            vol((65, W, H), u8, off, high=25), None, bf16)
+    _free()
 
 
 def phase_sgm_truth(left, right, truth, edges, maxd=64):

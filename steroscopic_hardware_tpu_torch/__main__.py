@@ -149,12 +149,13 @@ class App:
         if self.args.prewarm and hasattr(self.matcher, "warmup"):
             lf = self.manager.bus.latest("left")
             shape = lf.data.shape if lf is not None else (480, 640)
+            p = self.matcher.get_params()
             threading.Thread(
                 target=lambda: self.matcher.warmup(
-                    shape, lr=self.args.lr_check),
+                    shape, [p], lr=self.args.lr_check),
                 daemon=True,
             ).start()
-            self.log.info("prewarming for shape %s", shape)
+            self.log.info("prewarming %s for shape %s", p.to_json(), shape)
         return self
 
     def shutdown(self) -> None:

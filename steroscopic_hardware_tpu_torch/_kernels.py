@@ -131,7 +131,7 @@ def load() -> ctypes.CDLL:
             lib.sgm_aggregate.argtypes = ([ptr] * 2 + [i32] * 5
                                           + [f32, f32] + [i32] * 5 + [ptr])
             lib.sgm_aggregate.restype = i32
-            lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
             lib.sgm_transpose_add.restype = i32
             lib.sgm_epilogue.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
             lib.sgm_epilogue.restype = i32
@@ -408,6 +408,85 @@ def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
     return out
 
 
+# B4 (csrc/sgm.cu): a block stages a tile of TRANSPOSE_ROW_BYTES of a x
+# TRANSPOSE_ROWS rows b of aT and walks it through a chunk of d planes.
+TRANSPOSE_ROW_BYTES = 128
+TRANSPOSE_ROWS = 64
+TRANSPOSE_WIDTHS = (16, 8, 4, 2, 1)   # bytes per access, widest first
+TRANSPOSE_PLANES = 2                  # d planes a block walks
+TRANSPOSE_MAX_PLANE = 2 ** 30         # A * B: 32-bit in-plane offsets
+TRANSPOSE_IN = (torch.uint8, torch.bfloat16, torch.float32)
+TRANSPOSE_OUT = (torch.bfloat16, torch.float32)
+
+
+class TransposePlan(NamedTuple):
+    wa: int      # bytes per load of aT (along a)
+    wb: int      # bytes per load of b (along b); 0 without b
+    wo: int      # bytes per store of out (along b)
+    dpb: int     # d planes per block
+    grid: tuple  # (a tiles, b tiles, d chunks)
+
+
+def pointer_alignment(ptr: int) -> int:
+    """The largest power of two up to 16 that divides ``ptr``."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def _access_width(what, itemsize, cap, pitch, align):
+    for w in TRANSPOSE_WIDTHS:
+        if itemsize <= w <= cap and pitch % w == 0 and align % w == 0:
+            return w
+    raise ValueError(f"{what}: no access width for a pitch of {pitch} bytes "
+                     f"at alignment {align}")
+
+
+@functools.lru_cache(maxsize=256)
+def transpose_add_plan(D: int, B: int, A: int, in_dtype, out_dtype,
+                       has_b: bool, sms: int, align_a: int = 16,
+                       align_b: int = 16, align_out: int = 16
+                       ) -> TransposePlan:
+    """Launch plan of ``sgm_transpose_add`` for aT (D, B, A) of
+    ``in_dtype`` (and b (D, A, B) of it when ``has_b``) into out (D, A, B)
+    of ``out_dtype``, with base pointers aligned to ``align_*`` bytes, on a
+    card of ``sms`` multiprocessors.
+
+    Each access width is the widest of 16, 8, 4, 2, 1 bytes, no narrower
+    than an element, that divides the row pitch (A elements for aT, B for
+    b and out) and the base pointer; b's covers at most 8 elements (a
+    thread's run of b). The tile is 128 bytes of a by 64 rows b. A block
+    walks TRANSPOSE_PLANES d planes, its second plane's copies in flight
+    while it writes the first; one plane fewer when the grid would give
+    fewer than 4 blocks per SM. At 1080p d64-d256 (24-48 registers, 8
+    blocks per SM) 1 or 2 planes were fastest and 8 to D planes 6-40%
+    slower: the resident blocks, not a deep pipeline, keep the bytes in
+    flight. Raises ValueError for a volume the kernel does not take."""
+    if in_dtype not in TRANSPOSE_IN:
+        raise ValueError(f"aT must be uint8, bfloat16 or float32, got "
+                         f"{in_dtype}")
+    if out_dtype not in TRANSPOSE_OUT:
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
+    if min(D, B, A) < 1:
+        raise ValueError(f"empty volume {(D, B, A)}")
+    if A * B > TRANSPOSE_MAX_PLANE:
+        raise ValueError(f"plane {A} x {B} above {TRANSPOSE_MAX_PLANE} "
+                         f"elements")
+    sa, so = in_dtype.itemsize, out_dtype.itemsize
+    wa = _access_width("aT", sa, 16, A * sa, align_a)
+    wb = (_access_width("b", sa, min(16, 8 * sa), B * sa, align_b)
+          if has_b else 0)
+    wo = _access_width("out", so, 16, B * so, align_out)
+    gx = -(-A // (TRANSPOSE_ROW_BYTES // sa))
+    gy = -(-B // TRANSPOSE_ROWS)
+    dpb = min(D, TRANSPOSE_PLANES)
+    while dpb > 1 and gx * gy * -(-D // dpb) < 4 * sms:
+        dpb //= 2
+    gz = -(-D // dpb)
+    if max(gy, gz) > GRID_YZ_MAX:
+        raise ValueError(f"grid {(gx, gy, gz)} beyond CUDA's limits")
+    return TransposePlan(wa, wb, wo, dpb, (gx, gy, gz))
+
+
 def sgm_transpose_add(aT, b, out_dtype):
     """(D, A, B) ``aT.transpose(1, 2) [+ b]`` in float32, stored in
     ``out_dtype`` (bfloat16 / float32); aT (D, B, A), b None or (D, A, B)
@@ -421,17 +500,23 @@ def sgm_transpose_add(aT, b, out_dtype):
             raise ValueError(f"b must be {(D, A, B)} {aT.dtype} on "
                              f"{aT.device}, got {tuple(b.shape)} {b.dtype} "
                              f"on {b.device}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
+    if out_dtype not in TRANSPOSE_OUT:
         raise ValueError(f"out_dtype must be bfloat16 or float32, got "
                          f"{out_dtype}")
     with torch.cuda.device(aT.device):
         lib = load()
         out = torch.empty((D, A, B), dtype=out_dtype, device=aT.device)
+        plan = transpose_add_plan(
+            D, B, A, aT.dtype, out_dtype, b is not None, _sms(aT.device),
+            pointer_alignment(aT.data_ptr()),
+            16 if b is None else pointer_alignment(b.data_ptr()),
+            pointer_alignment(out.data_ptr()))
         stream = torch.cuda.current_stream(aT.device).cuda_stream
         err = lib.sgm_transpose_add(aT.data_ptr(),
                                     None if b is None else b.data_ptr(),
                                     out.data_ptr(), D, B, A, in_type,
-                                    _TYPE_CODES[out_dtype], stream)
+                                    _TYPE_CODES[out_dtype], *plan[:4],
+                                    *plan.grid, stream)
     _raise_on(lib, err, "sgm_transpose_add")
     launches["sgm_transpose_add"] += 1
     return out

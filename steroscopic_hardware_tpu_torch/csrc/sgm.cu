@@ -56,11 +56,31 @@
 // recursion. It meets in the middle as above, and is latency-bound: S
 // dependent steps of barriers and shuffles per column.
 //
-// B4, sgm_transpose_add. out[d, a, b] = aT[d, b, a] (+ bb[d, a, b]) in float32,
-// stored in the output type. A 32 x 32 tile per block, read coalesced
-// along a into shared memory (one column of padding against bank
-// conflicts), written coalesced along b with the optional addend read in
-// the same pass. Bound: memory (bytes in + bytes out once).
+// B4, sgm_transpose_add (replaces _transpose_add_pallas,
+// steroscopic_hardware_tpu/ops/sgm.py:415). out[d, a, b] = aT[d, b, a]
+// (+ bb[d, a, b]) in float32 (the add __fadd_rn(bb, aT)), stored in the
+// output type. Bound on the H100: bytes, each input read once and the
+// output written once (1080p d64: the cost form u8 -> bf16 404 MB, 121 us
+// at 3.35 TB/s; the summed form bf16 + bf16 -> bf16 809 MB, 241 us). The
+// first kernel (one 32 x 32 tile of one plane per block, widened to
+// float in shared memory) reached 36% / 44% of that: each thread moved
+// one or two bytes per memory instruction, so a warp's access held one or
+// two 32-byte sectors, and an SM held at most ~8 KB of loads in flight
+// where ~18 KB cover the memory latency. This one moves every access in
+// 16-byte vectors where the row pitch and the base pointer allow it, else
+// 8, 4 or one element (the launch plan picks them; the width divides the
+// pitch, so a vector is wholly inside a row or wholly past the tile's
+// ragged edge, and the edge is masked per vector). A block walks one tile
+// of 128 bytes of a x 64 rows b through a chunk of d planes, staged in
+// aT's own type by cp.async up to three planes ahead (8 KB a plane), its
+// rows swizzled in 16-byte chunks so that the transposed reads are free
+// of bank conflicts; the addend is loaded as vectors before the block
+// waits for the tile, and each thread writes 8 values of b (16 bytes of
+// bfloat16) per row. At 24-48 registers 8 blocks of 256 threads fit an
+// SM, so 2 planes a block already keep ~128 KB in flight per SM. There is
+// no TMA: a tensor map needs row strides of a multiple of 16 bytes, and
+// the 1080-byte uint8 rows of the served cost volume are not (they take
+// 8-byte accesses).
 //
 // B5, sgm_epilogue. agg_v (D, H, W) + agg_ht (D, W, H) -> disparity float32
 // (H, W): c(d) = agg_v[d] + agg_ht[d]^T in float32, a running first-minimum
@@ -461,54 +481,259 @@ cudaError_t aggregate_out(int out_type, const AggPlan& p, const void* cost, void
 
 // -- B4 ------------------------------------------------------------------------
 
-template <typename Ta, typename Tout, bool HAS_B>
-__global__ void __launch_bounds__(256)
-    sgm_transpose_add_kernel(const Ta* __restrict__ aT, const Ta* __restrict__ b,
-                             Tout* __restrict__ out, int B, int A) {
-  __shared__ float tile[32][33];
-  const size_t plane = static_cast<size_t>(A) * B;
-  const size_t off = static_cast<size_t>(blockIdx.z) * plane;
-  const int a0 = blockIdx.x * 32, b0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int r = ty; r < 32; r += 8) {
-    const int bb = b0 + r, aa = a0 + tx;
-    if (bb < B && aa < A) tile[r][tx] = widen(aT[off + static_cast<size_t>(bb) * A + aa]);
+// A tile: TP_TB rows b of TP_ROW bytes of aT (128 uint8, 64 bfloat16 or
+// 32 float32 values of a), staged in aT's own type. Byte x of row r sits
+// in 16-byte chunk (x / 16) ^ (r / 8) of the row, so that the 8 rows a
+// warp reads at once (8 apart) lie in 8 different chunks: no bank
+// conflict, and every copy of up to 16 bytes stays whole.
+constexpr int TP_ROW = 128;
+constexpr int TP_TB = 64;
+constexpr int TP_THREADS = 256;  // one 32-bit word x 8 rows of the tile each
+constexpr int TP_STAGES = 3;     // planes of a block in flight
+
+struct TransposePlan {
+  int wa, wb, wo, dpb;  // bytes per access of aT, b, out; planes per block
+};
+
+__device__ __forceinline__ int tp_swizzle(int r, int x) {
+  return r * TP_ROW + ((((x >> 4) ^ (r >> 3)) & 7) << 4) + (x & 15);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
+                 "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage the tile of one plane: rows b0 .. b0 + TP_TB - 1 of aT from byte
+// x0 of each row (pitch bytes a row), in W-byte pieces: cp.async for 4, 8
+// and 16 bytes, a plain load and store below. W divides the pitch, so a
+// piece lies wholly inside the row or wholly past its end.
+template <int W>
+__device__ __forceinline__ void tp_stage(uint8_t* tile, const uint8_t* plane,
+                                         uint32_t pitch, int b0, int B, uint32_t x0) {
+  constexpr int PER_ROW = TP_ROW / W;
+  // rolled: unrolled (2 to 32 pieces a thread), the pieces' addresses are
+  // hoisted out of the plane loop and held in registers (up to 128 a
+  // thread for uint8, and spills)
+#pragma unroll 1
+  for (int q = threadIdx.x; q < TP_TB * PER_ROW; q += TP_THREADS) {
+    const int r = q / PER_ROW, x = (q % PER_ROW) * W;
+    if (b0 + r >= B || x0 + x >= pitch) continue;
+    uint8_t* dst = tile + tp_swizzle(r, x);
+    const uint8_t* src = plane + static_cast<uint32_t>(b0 + r) * pitch + x0 + x;
+    if constexpr (W >= 4) {
+      cp_async<W>(dst, src);
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<uint16_t*>(dst) = __ldg(reinterpret_cast<const unsigned short*>(src));
+    } else {
+      *dst = __ldg(src);
+    }
   }
-  __syncthreads();
-  for (int r = ty; r < 32; r += 8) {
-    const int aa = a0 + r, bb = b0 + tx;
-    if (aa < A && bb < B) {
-      const size_t o = off + static_cast<size_t>(aa) * B + bb;
-      float v = tile[tx][r];
-      if (HAS_B) v = __fadd_rn(widen(b[o]), v);
-      out[o] = narrow<Tout>(v);
+}
+
+// NW words <-> global memory in W-byte pieces; piece q is used only when
+// its bytes lie within the first `valid` (the row's end), else it reads 0.
+template <int W, int NW>
+__device__ __forceinline__ void tp_load(uint32_t (&w)[NW], const uint8_t* src, int valid) {
+#pragma unroll
+  for (int q = 0; q < NW * 4 / W; ++q) {
+    if ((q + 1) * W > valid) continue;
+    if constexpr (W == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + q);
+      w[4 * q] = v.x, w[4 * q + 1] = v.y, w[4 * q + 2] = v.z, w[4 * q + 3] = v.w;
+    } else if constexpr (W == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + q);
+      w[2 * q] = v.x, w[2 * q + 1] = v.y;
+    } else if constexpr (W == 4) {
+      w[q] = __ldg(reinterpret_cast<const unsigned*>(src) + q);
+    } else if constexpr (W == 2) {
+      w[q / 2] |= static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(src) + q))
+                  << (16 * (q % 2));
+    } else {
+      w[q / 4] |= static_cast<uint32_t>(__ldg(src + q)) << (8 * (q % 4));
+    }
+  }
+}
+
+template <int W, int NW>
+__device__ __forceinline__ void tp_store(uint8_t* dst, const uint32_t (&w)[NW], int valid) {
+#pragma unroll
+  for (int q = 0; q < NW * 4 / W; ++q) {
+    if ((q + 1) * W > valid) continue;
+    if constexpr (W == 16) {
+      reinterpret_cast<uint4*>(dst)[q] =
+          make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    } else if constexpr (W == 8) {
+      reinterpret_cast<uint2*>(dst)[q] = make_uint2(w[2 * q], w[2 * q + 1]);
+    } else if constexpr (W == 4) {
+      reinterpret_cast<unsigned*>(dst)[q] = w[q];
+    } else {
+      reinterpret_cast<unsigned short*>(dst)[q] =
+          static_cast<unsigned short>(w[q / 2] >> (16 * (q % 2)));
+    }
+  }
+}
+
+// value i of a 32-bit word of packed T, and float -> the bits of T
+template <typename T> __device__ __forceinline__ float unpack(uint32_t w, int i);
+template <> __device__ __forceinline__ float unpack<uint8_t>(uint32_t w, int i) {
+  return static_cast<float>((w >> (8 * i)) & 0xffu);
+}
+template <> __device__ __forceinline__ float unpack<__nv_bfloat16>(uint32_t w, int i) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(w >> (16 * i))));
+}
+template <> __device__ __forceinline__ float unpack<float>(uint32_t w, int) {
+  return __uint_as_float(w);
+}
+template <typename T> __device__ __forceinline__ uint32_t pack(float v);
+template <> __device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+template <> __device__ __forceinline__ uint32_t pack<float>(float v) { return __float_as_uint(v); }
+
+// One block: one (a, b) tile through the d planes d0 .. d0 + dpb - 1 of
+// its chunk, TP_STAGES - 1 planes of aT in flight (cp.async) ahead of the
+// one it writes. A thread writes the 8 values b0 + 8j .. + 7 of AE rows a
+// (AE = values of aT in 32 bits): one word of each of 8 tile rows, read
+// back as AE 8-value vectors, with the addend's 8 values per row loaded
+// before it waits for the tile.
+template <typename Ta, typename Tout, bool HAS_B>
+__global__ void __launch_bounds__(TP_THREADS)
+    sgm_transpose_add_kernel(const Ta* __restrict__ aT, const Ta* __restrict__ bb,
+                             Tout* __restrict__ out, int D, int B, int A, TransposePlan p) {
+  constexpr int SA = sizeof(Ta), SO = sizeof(Tout);
+  constexpr int AE = 4 / SA;      // a values per word of the tile
+  constexpr int NB = 2 * SA;      // words of 8 values of Ta
+  constexpr int NO = 2 * SO;      // words of 8 values of Tout
+  constexpr int OE = 4 / SO;      // values of Tout per word
+  __shared__ __align__(16) uint8_t tiles[TP_STAGES][TP_TB * TP_ROW];
+  const int a0 = blockIdx.x * (TP_ROW / SA), b0 = blockIdx.y * TP_TB;
+  const int d0 = blockIdx.z * p.dpb, n = min(p.dpb, D - d0);
+  const uint32_t plane = static_cast<uint32_t>(A) * static_cast<uint32_t>(B);
+  const uint32_t pitch_a = static_cast<uint32_t>(A) * SA;
+  const int j = threadIdx.x & 7, ai = threadIdx.x >> 3;
+  const int bl = b0 + 8 * j;                // this thread's first b
+  const int left_a = (B - bl) * SA, left_o = (B - bl) * SO;  // bytes to the row end
+
+  auto stage = [&](int i) {
+    uint8_t* tile = tiles[i % TP_STAGES];
+    const uint8_t* src =
+        reinterpret_cast<const uint8_t*>(aT + static_cast<size_t>(d0 + i) * plane);
+    const uint32_t x0 = static_cast<uint32_t>(a0) * SA;
+    switch (p.wa) {
+      case 16: tp_stage<16>(tile, src, pitch_a, b0, B, x0); break;
+      case 8: tp_stage<8>(tile, src, pitch_a, b0, B, x0); break;
+      case 4: tp_stage<4>(tile, src, pitch_a, b0, B, x0); break;
+      case 2: if constexpr (SA <= 2) tp_stage<2>(tile, src, pitch_a, b0, B, x0); break;
+      default: if constexpr (SA == 1) tp_stage<1>(tile, src, pitch_a, b0, B, x0); break;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < TP_STAGES - 1; ++s) {
+    if (s < n) stage(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    const size_t po = static_cast<size_t>(d0 + i) * plane;
+    uint32_t bw[AE][NB];
+#pragma unroll
+    for (int e = 0; e < AE; ++e) {
+#pragma unroll
+      for (int k = 0; k < NB; ++k) bw[e][k] = 0;
+      const int a = a0 + ai * AE + e;
+      if (HAS_B && a < A) {
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(
+            bb + po + static_cast<uint32_t>(a) * B + bl);
+        switch (p.wb) {
+          case 16: if constexpr (NB >= 4) tp_load<16>(bw[e], src, left_a); break;
+          case 8: tp_load<8>(bw[e], src, left_a); break;
+          case 4: tp_load<4>(bw[e], src, left_a); break;
+          case 2: if constexpr (SA <= 2) tp_load<2>(bw[e], src, left_a); break;
+          default: if constexpr (SA == 1) tp_load<1>(bw[e], src, left_a); break;
+        }
+      }
+    }
+    cp_async_wait<TP_STAGES - 2>();  // this thread's copies of plane i
+    __syncthreads();                 // everyone's; and plane i - 1 is read
+    if (i + TP_STAGES - 1 < n) stage(i + TP_STAGES - 1);
+    cp_async_commit();
+
+    const uint8_t* tile = tiles[i % TP_STAGES];
+    uint32_t tw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      tw[k] = *reinterpret_cast<const uint32_t*>(tile + tp_swizzle(8 * j + k, 4 * ai));
+#pragma unroll
+    for (int e = 0; e < AE; ++e) {
+      const int a = a0 + ai * AE + e;
+      uint32_t ow[NO];
+#pragma unroll
+      for (int k = 0; k < NO; ++k) ow[k] = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float v = unpack<Ta>(tw[k], e);
+        if (HAS_B) v = __fadd_rn(unpack<Ta>(bw[e][k / AE], k % AE), v);
+        ow[k / OE] |= pack<Tout>(v) << (32 / OE * (k % OE));
+      }
+      if (a >= A) continue;
+      uint8_t* dst = reinterpret_cast<uint8_t*>(out + po + static_cast<uint32_t>(a) * B + bl);
+      switch (p.wo) {
+        case 16: tp_store<16>(dst, ow, left_o); break;
+        case 8: tp_store<8>(dst, ow, left_o); break;
+        case 4: tp_store<4>(dst, ow, left_o); break;
+        default: if constexpr (SO == 2) tp_store<2>(dst, ow, left_o); break;
+      }
     }
   }
 }
 
 template <typename Ta, typename Tout>
-cudaError_t launch_transpose_add(const void* aT, const void* b, void* out, int D,
-                                 int B, int A, cudaStream_t stream) {
-  const dim3 grid((A + 31) / 32, (B + 31) / 32, D), block(32, 8);
+cudaError_t launch_transpose_add(const void* aT, const void* b, void* out, int D, int B,
+                                 int A, const TransposePlan& p, dim3 grid,
+                                 cudaStream_t stream) {
+  const Ta* a = static_cast<const Ta*>(aT);
+  Tout* o = static_cast<Tout*>(out);
   if (b != nullptr)
-    sgm_transpose_add_kernel<Ta, Tout, true><<<grid, block, 0, stream>>>(
-        static_cast<const Ta*>(aT), static_cast<const Ta*>(b), static_cast<Tout*>(out),
-        B, A);
+    sgm_transpose_add_kernel<Ta, Tout, true><<<grid, TP_THREADS, 0, stream>>>(
+        a, static_cast<const Ta*>(b), o, D, B, A, p);
   else
-    sgm_transpose_add_kernel<Ta, Tout, false><<<grid, block, 0, stream>>>(
-        static_cast<const Ta*>(aT), nullptr, static_cast<Tout*>(out), B, A);
+    sgm_transpose_add_kernel<Ta, Tout, false><<<grid, TP_THREADS, 0, stream>>>(
+        a, nullptr, o, D, B, A, p);
   return cudaGetLastError();
 }
 
 template <typename Ta>
-cudaError_t transpose_add_out(int out_type, const void* aT, const void* b, void* out,
-                              int D, int B, int A, cudaStream_t stream) {
+cudaError_t transpose_add_out(int out_type, const void* aT, const void* b, void* out, int D,
+                              int B, int A, const TransposePlan& p, dim3 grid,
+                              cudaStream_t stream) {
   switch (out_type) {
     case T_BF16:
-      return launch_transpose_add<Ta, __nv_bfloat16>(aT, b, out, D, B, A, stream);
-    case T_F32: return launch_transpose_add<Ta, float>(aT, b, out, D, B, A, stream);
+      return launch_transpose_add<Ta, __nv_bfloat16>(aT, b, out, D, B, A, p, grid, stream);
+    case T_F32: return launch_transpose_add<Ta, float>(aT, b, out, D, B, A, p, grid, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// an access width the kernel takes: a power of two from the element size
+// up to cap that divides the row pitch and the base pointer
+bool tp_width_ok(int w, int elem, int cap, long long pitch, const void* ptr) {
+  return (w == 1 || w == 2 || w == 4 || w == 8 || w == 16) && w >= elem && w <= cap &&
+         pitch % w == 0 && reinterpret_cast<uintptr_t>(ptr) % w == 0;
 }
 
 // -- B5 ------------------------------------------------------------------------
@@ -620,14 +845,38 @@ int sgm_aggregate(const void* cost, void* out, int D, int S, int K, int in_type,
 }
 
 // out (D, A, B) = aT (D, B, A) transposed (+ b (D, A, B), of aT's type, when
-// b is not null), all contiguous; out_type 1 bfloat16 or 2 float32.
+// b is not null), all contiguous; in_type 0 uint8, 1 bfloat16, 2 float32;
+// out_type 1 bfloat16 or 2 float32; A * B <= 2^30. The launch plan
+// (_kernels.transpose_add_plan): wa / wb / wo bytes per access of aT, b
+// (0 without b) and out, each a power of two from the element size up to
+// 16 (wb up to 8 elements) dividing its row pitch and base pointer; dpb d
+// planes per block; grid (gx, gy, gz) exactly (ceil(A / (128 / size of
+// aT)), ceil(B / 64), ceil(D / dpb)). Any other plan is refused.
 int sgm_transpose_add(const void* aT, const void* b, void* out, int D, int B, int A,
-                      int in_type, int out_type, void* stream) {
+                      int in_type, int out_type, int wa, int wb, int wo, int dpb, int gx,
+                      int gy, int gz, void* stream) {
+  const int sa = in_type == T_U8 ? 1 : in_type == T_BF16 ? 2 : in_type == T_F32 ? 4 : 0;
+  const int so = out_type == T_BF16 ? 2 : out_type == T_F32 ? 4 : 0;
+  if (sa == 0 || so == 0 || D < 1 || B < 1 || A < 1 ||
+      static_cast<long long>(A) * B > (1ll << 30) || dpb < 1)
+    return cudaErrorInvalidValue;
+  const bool ok =
+      tp_width_ok(wa, sa, 16, static_cast<long long>(A) * sa, aT) &&
+      (b == nullptr ? wb == 0
+                    : tp_width_ok(wb, sa, 8 * sa < 16 ? 8 * sa : 16,
+                                  static_cast<long long>(B) * sa, b)) &&
+      tp_width_ok(wo, so, 16, static_cast<long long>(B) * so, out) &&
+      gx == (A + TP_ROW / sa - 1) / (TP_ROW / sa) && gy == (B + TP_TB - 1) / TP_TB &&
+      gz == (D + dpb - 1) / dpb && gy <= 65535 && gz <= 65535;
+  if (!ok) return cudaErrorInvalidValue;
+  const TransposePlan p{wa, wb, wo, dpb};
+  const dim3 grid(gx, gy, gz);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_type) {
-    case T_U8: return transpose_add_out<uint8_t>(out_type, aT, b, out, D, B, A, s);
-    case T_BF16: return transpose_add_out<__nv_bfloat16>(out_type, aT, b, out, D, B, A, s);
-    case T_F32: return transpose_add_out<float>(out_type, aT, b, out, D, B, A, s);
+    case T_U8: return transpose_add_out<uint8_t>(out_type, aT, b, out, D, B, A, p, grid, s);
+    case T_BF16:
+      return transpose_add_out<__nv_bfloat16>(out_type, aT, b, out, D, B, A, p, grid, s);
+    case T_F32: return transpose_add_out<float>(out_type, aT, b, out, D, B, A, p, grid, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -25,6 +25,7 @@ import threading
 import numpy as np
 import torch
 
+from steroscopic_hardware_tpu_torch import _kernels
 from steroscopic_hardware_tpu_torch.ops.colorize import (
     colorize_disparity,
     downscale_u8,
@@ -38,7 +39,12 @@ from steroscopic_hardware_tpu_torch.ops.sgm import (
     sgm_disparity,
     sgm_lr_checked,
 )
-from steroscopic_hardware_tpu_torch.utils.params import Parameters, ParamStore
+from steroscopic_hardware_tpu_torch.utils.params import (
+    VALID_BLOCK_SIZES,
+    VALID_MAX_DISPARITIES,
+    Parameters,
+    ParamStore,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -261,7 +267,11 @@ class BlockMatcher(_Engine):
 
         ``pairs``: list of (left, right) uint8 arrays of one shape.
         """
-        p = self.store.get()
+        return self._serve_async(self.store.get(), pairs, lr, preview_scale,
+                                 fetch_all, colorize_dev)
+
+    def _serve_async(self, p, pairs, lr, preview_scale, fetch_all,
+                     colorize_dev) -> ServeFuture:
         return enqueue_serve(self.device, self._launch_lock, pairs,
                              functools.partial(
                                  serve_step, block_size=p.block_size,
@@ -272,19 +282,36 @@ class BlockMatcher(_Engine):
                                  colorize_dev=colorize_dev))
 
     # -- warmup -------------------------------------------------------------
-    def warmup(self, shape, lr: bool = False) -> int:
-        """Launch once at ``shape`` with the current parameters (and once
-        more for the LR kernel with ``lr``), which builds the kernel
-        library on a CUDA device; block size and disparity are runtime
-        arguments, so no other parameter needs its own build. Returns the
-        number of launches."""
+    def warmup(self, shape, params_list=None, lr: bool = False) -> int:
+        """Warm the serve step for ``shape`` (the JAX ``warmup``'s
+        signature and count). Without ``params_list`` it stands for the
+        whole HTTP-API envelope (15 block sizes x 16 disparities). Each
+        entry must be a :class:`Parameters` inside the kernels' envelope
+        (block 1..63, maxDisparity 1..511; the reference's default block
+        16 is even, so the HTTP rule would refuse it). Block size and
+        disparity are runtime arguments of the kernels, so one launch
+        with the first entry (and one more for the LR kernel with ``lr``)
+        builds the kernel library for all of them. The launches take the
+        entry as an argument and leave the current parameters as they
+        are, so a pipeline serving meanwhile never sees them change.
+        Returns the number of parameter sets warmed."""
+        if params_list is None:
+            params_list = [Parameters(b, d) for b in VALID_BLOCK_SIZES
+                           for d in VALID_MAX_DISPARITIES]
+        for p in params_list:
+            if not isinstance(p, Parameters):
+                raise TypeError(f"params_list entries must be Parameters, "
+                                f"got {type(p).__name__}")
+            if not (1 <= p.block_size <= _kernels.MAX_BLOCK_SIZE and
+                    1 <= p.max_disparity <= _kernels.MAX_DISPARITY):
+                raise ValueError(f"{p} outside the kernels' envelope")
+        if not params_list:
+            return 0
         zeros = np.zeros(shape, np.uint8)
-        self.compute_serve_async([(zeros, zeros)],
-                                 colorize_dev=False).result()
-        if lr:
-            self.compute_serve_async([(zeros, zeros)], lr=True,
-                                     colorize_dev=False).result()
-        return 2 if lr else 1
+        for with_lr in (False, True) if lr else (False,):
+            self._serve_async(params_list[0], [(zeros, zeros)], with_lr, 1,
+                              True, False).result()
+        return len(params_list)
 
 
 @dataclasses.dataclass

@@ -1,9 +1,10 @@
 """SGM probe on one GPU: times B3 (``sgm_aggregate``) through its wrapper at
-1920x1080, B3 under every launch plan its kernels take (``--plans``), and
-the device time of served SGM frames by kernel (``--profile``).
+1920x1080, B3 under every launch plan its kernels take (``--plans``), the
+device time of served SGM frames by kernel (``--profile``), and B4
+(``sgm_transpose_add``) alone (``--transpose``).
 
     python -m steroscopic_hardware_tpu_torch.sgm_probe [--plans] [--profile] \
-        [--maxd 64] [--out FILE]
+        [--transpose] [--maxd 64] [--out FILE]
 
 The first line is the card (``nvidia-smi`` name and power limit). Then one
 JSON line per measurement; with ``--out`` all of them also go there as a
@@ -17,7 +18,15 @@ with the LR check) on a seeded textured pair, 10 frames after 3 warm-ups,
 under ``torch.profiler``: per kernel its device time and launches per
 frame, and per frame the sum of all kernels' device time beside the wall
 time between two CUDA events around the 10 frames, and beside the frame's
-time without the profiler (the median of 10).
+time without the profiler (the median of 10). ``--transpose`` replaces the
+B3 rows with B4's three served forms at 1080p on seeded volumes: the cost
+form uint8 (D, W, H) -> bfloat16 (D, H, W), and the summed form (D, W, H)
++ (D, H, W) bfloat16 -> bfloat16 and -> float32 (the float32 tier), each
+through the wrapper beside its byte bound; with ``--plans`` also under
+launch plans around the one ``_kernels.transpose_add_plan`` picks (each
+access width the library takes at that shape, and other d planes per
+block), each checked against the wrapper's output. Without ``--plans`` it
+uses only the wrapper, so a copy of this file times a parent commit.
 """
 
 from __future__ import annotations
@@ -115,6 +124,102 @@ def probe_plans(maxd):
     return rows
 
 
+MEM_BPS = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+
+
+def _transpose_forms(maxd):
+    """(form, aT, b, out dtype) of B4's served forms at 1080p."""
+    rng = np.random.default_rng(SEED + 7)
+    D = maxd + 1
+    bf16 = torch.bfloat16
+    cost_t = torch.from_numpy(
+        rng.integers(0, 25, (D, W, H), dtype=np.uint8)).cuda()
+    agg_ht = torch.from_numpy(
+        rng.integers(0, 120, (D, W, H), dtype=np.uint8)).cuda().to(bf16)
+    agg_v = torch.from_numpy(
+        rng.integers(0, 120, (D, H, W), dtype=np.uint8)).cuda().to(bf16)
+    return [("cost u8->bf16", cost_t, None, bf16),
+            ("summed bf16+bf16->bf16", agg_ht, agg_v, bf16),
+            ("summed bf16+bf16->f32", agg_ht, agg_v, torch.float32)]
+
+
+def _transpose_bytes(aT, b, out_dtype):
+    n = aT.numel()
+    return n * (aT.element_size() * (1 if b is None else 2)
+                + torch.empty((), dtype=out_dtype).element_size())
+
+
+def probe_transpose(maxd, plans):
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rows = []
+    for form, aT, b, outd in _transpose_forms(maxd):
+        nbytes = _transpose_bytes(aT, b, outd)
+        ms = time_ms(lambda: sgm.transpose_add(aT, b, out_dtype=outd))
+        rows.append({"kernel": "sgm_transpose_add", "form": form,
+                     "maxd": maxd, "ms": ms, "MB": nbytes / 1e6,
+                     "bound_ms": nbytes / MEM_BPS * 1e3})
+        if plans:
+            rows += _transpose_plans(form, maxd, aT, b, outd)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _transpose_plans(form, maxd, aT, b, outd):
+    """B4 under the chosen plan and, one field at a time, every other
+    access width the library takes at this shape and other d planes per
+    block, called through the library."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    lib = _kernels.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    D, B, A = aT.shape
+    want = sgm.transpose_add(aT, b, out_dtype=outd)
+    out = torch.empty_like(want)
+    chosen = _kernels.transpose_add_plan(D, B, A, aT.dtype, outd,
+                                         b is not None, sms)
+    sa, so = aT.element_size(), out.element_size()
+
+    def widths(elem, cap, pitch):
+        return [w for w in _kernels.TRANSPOSE_WIDTHS
+                if elem <= w <= cap and pitch % w == 0]
+
+    plans = [chosen]
+    plans += [chosen._replace(wa=w) for w in widths(sa, 16, A * sa)]
+    if b is not None:
+        plans += [chosen._replace(wb=w)
+                  for w in widths(sa, min(16, 8 * sa), B * sa)]
+    plans += [chosen._replace(wo=w) for w in widths(so, 16, B * so)]
+    for dpb in (1, 2, 4, 8, 16, 32, D):
+        plans.append(chosen._replace(
+            dpb=dpb, grid=chosen.grid[:2] + (-(-D // dpb),)))
+    seen, rows = set(), []
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in plans:
+        if plan in seen:
+            continue
+        seen.add(plan)
+
+        def run(plan=plan):
+            err = lib.sgm_transpose_add(
+                aT.data_ptr(), None if b is None else b.data_ptr(),
+                out.data_ptr(), D, B, A, _kernels._TYPE_CODES[aT.dtype],
+                _kernels._TYPE_CODES[outd], *plan[:4], *plan.grid, stream)
+            if err:
+                raise RuntimeError(f"plan {plan} refused ({err})")
+
+        out.zero_()
+        run()
+        torch.cuda.synchronize()
+        rows.append({"kernel": "sgm_transpose_add", "form": form,
+                     "maxd": maxd, "plan": plan._asdict(),
+                     "chosen": plan == chosen,
+                     "equal": bool(torch.equal(out, want)),
+                     "ms": time_ms(run)})
+    return rows
+
+
 def probe_profile(maxd, lr, frames=10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -162,6 +267,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plans", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--transpose", action="store_true",
+                    help="time B4 instead of B3")
     ap.add_argument("--maxd", default="64",
                     help="comma-separated max disparities (default 64)")
     ap.add_argument("--out", default=None)
@@ -175,8 +282,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     rows = []
     for maxd in (int(m) for m in args.maxd.split(",")):
-        found = probe_wrapper(maxd)
-        if args.plans:
+        if args.transpose:
+            found = probe_transpose(maxd, args.plans)
+        else:
+            found = probe_wrapper(maxd)
+        if args.plans and not args.transpose:
             found += probe_plans(maxd)
         if args.profile:
             found += (probe_profile(maxd, lr=False)

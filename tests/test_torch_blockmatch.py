@@ -16,6 +16,9 @@ from steroscopic_hardware_tpu_torch.models.blockmatch import (
     resolve_device,
     serve_step,
 )
+from steroscopic_hardware_tpu_torch.utils.params import (
+    Parameters as PortParameters,
+)
 
 H, W = 24, 48
 
@@ -107,9 +110,49 @@ def test_compute_serve_async_and_retune(rng):
 
 
 def test_warmup_on_cpu():
+    """The JAX count: the whole HTTP envelope without a list (15 block
+    sizes x 16 disparities), else one per entry; entries are checked."""
     m = BlockMatcher(device="cpu")
-    assert m.warmup((16, 40)) == 1
-    assert m.warmup((16, 40), lr=True) == 2
+    assert m.warmup((16, 40)) == 240
+    assert m.warmup((16, 40), lr=True) == 240
+    assert m.warmup((16, 40), [PortParameters(5, 32), PortParameters(7, 16)]) == 2
+    assert m.warmup((16, 40), [], lr=True) == 0
+    with pytest.raises(TypeError, match="Parameters"):
+        m.warmup((16, 40), [(5, 32)])
+    with pytest.raises(ValueError, match="envelope"):
+        m.warmup((16, 40), [PortParameters(5, 512)])
+
+
+@pytest.mark.parametrize("lr", [False, True])
+def test_warmup_matches_jax(lr):
+    """The JAX server's call, ``warmup(shape, [p], lr=...)``, returns the
+    JAX count and leaves the current parameters as they were."""
+    port = BlockMatcher(PortParameters(5, 48), device="cpu")
+    ref = JaxBlockMatcher(Parameters(5, 48), backend="xla")
+    n = port.warmup((16, 40), [PortParameters(9, 32)], lr=lr)
+    assert n == ref.warmup((16, 40), [Parameters(9, 32)], lr=lr) == 1
+    assert port.get_params() == PortParameters(5, 48)
+    assert ref.store.get() == Parameters(5, 48)
+
+
+def test_warmup_binds_the_list_to_params_not_lr(monkeypatch):
+    """``warmup(shape, [p])`` warms the SAD kernel alone: the list no
+    longer lands on ``lr``, so the LR kernel is not launched."""
+    from steroscopic_hardware_tpu_torch.models import blockmatch
+
+    calls = []
+    real = blockmatch.disparity_lr
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(blockmatch, "disparity_lr", spy)
+    m = BlockMatcher(device="cpu")
+    assert m.warmup((16, 40), [PortParameters(7, 16)]) == 1
+    assert calls == []
+    assert m.warmup((16, 40), [PortParameters(7, 16)], lr=True) == 1
+    assert calls == [dict(block_size=7, max_disparity=16)]
 
 
 def test_resolve_device_rules():

@@ -322,6 +322,135 @@ def test_sgm_transpose_add_and_epilogue_equal_plain(cuda, shape):
         assert torch.equal(got, plain)
 
 
+u8, bf16, f32 = torch.uint8, torch.bfloat16, torch.float32
+# B4's type combinations: (aT / b dtype, out dtype, with b)
+TRANSPOSE_FORMS = [(u8, bf16, False), (bf16, bf16, True), (bf16, f32, True),
+                   (f32, f32, True), (u8, f32, True), (f32, bf16, False)]
+
+
+def _offset_volume(seed, shape, dtype, offset, device, high=120):
+    """A contiguous volume whose base lies ``offset`` bytes past a 16-byte
+    boundary (a view into a larger allocation)."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    flat = _volume(seed, (n + 16,), high).to(device).to(dtype)
+    view = flat[offset // size:offset // size + n].view(shape)
+    assert view.data_ptr() % 16 == offset and view.is_contiguous()
+    return view
+
+
+def _check_transpose(aT, b, out_dtype):
+    got = sgm.transpose_add(aT, b, out_dtype=out_dtype)
+    want = sgm.transpose_add_plain(aT, b, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", TRANSPOSE_FORMS)
+@pytest.mark.parametrize("offset", [0, 8, 4, 2, 1])
+def test_sgm_transpose_add_at_each_access_width(cuda, form, offset):
+    """aT and b at base pointers 16, 8, 4, 2 and 1 bytes aligned, so that
+    the plan takes each width the element size allows for both."""
+    ind, outd, has_b = form
+    size = torch.empty((), dtype=ind).element_size()
+    if offset % size:
+        pytest.skip("a torch tensor's base is a multiple of its element size")
+    D, B, A = 3, 72, 1920
+    aT = _offset_volume(1, (D, B, A), ind, offset, cuda)
+    b = _offset_volume(2, (D, A, B), ind, offset, cuda) if has_b else None
+    plan = _kernels.transpose_add_plan(D, B, A, ind, outd, has_b, 132,
+                                       offset or 16, offset or 16, 16)
+    assert plan.wa == max(size, offset or 16)
+    assert plan.wb == (min(8 * size, offset or 16) if has_b else 0)
+    _check_transpose(aT, b, outd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", TRANSPOSE_FORMS)
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (1, 53, 37), (2, 38, 130), (5, 36, 257), (3, 65, 129),
+    (2, 100, 20), (7, 130, 66), (1, 1920, 1080), (4, 64, 128)])
+def test_sgm_transpose_add_ragged_edges(cuda, form, shape):
+    """Tiles cut by the volume's edges (A, B not multiples of the tile),
+    out rows of every store width (B odd, 2 and 4 mod 8, and a multiple of
+    8) and D = 1."""
+    ind, outd, has_b = form
+    D, B, A = shape
+    aT = _volume(3, shape, 120).to(cuda).to(ind)
+    b = _volume(4, (D, A, B), 120).to(cuda).to(ind) if has_b else None
+    _check_transpose(aT, b, outd)
+
+
+@pytest.mark.gpu
+def test_sgm_transpose_add_on_views(cuda):
+    """A strided view made contiguous, and contiguous views at an offset
+    into their allocation (the 1080-row uint8 cost volume among them)."""
+    wide = _volume(5, (3, 40, 2 * 1080 + 3)).to(cuda)
+    aT = wide[:, :, 3::2].contiguous()
+    assert aT.shape == (3, 40, 1080)
+    _check_transpose(aT, None, bf16)
+    aT = _offset_volume(6, (2, 40, 1080), u8, 8, cuda, high=25)
+    _check_transpose(aT, None, bf16)
+    a16 = _offset_volume(7, (2, 40, 1080), bf16, 4, cuda)
+    b16 = _offset_volume(8, (2, 1080, 40), bf16, 2, cuda)
+    _check_transpose(a16, b16, bf16)
+    _check_transpose(a16, b16, f32)
+
+
+@pytest.mark.gpu
+def test_sgm_transpose_add_1080p_d64(cuda):
+    """The served cost form: 1080-byte uint8 rows (8-byte loads) into
+    1920-wide bfloat16 rows."""
+    cost_t = _volume(9, (65, 1920, 1080), 25).to(cuda)
+    plan = _kernels.transpose_add_plan(65, 1920, 1080, u8, bf16, False, 132)
+    assert plan.wa == 8 and plan.wo == 16
+    _check_transpose(cost_t, None, bf16)
+
+
+@pytest.mark.gpu
+def test_sgm_library_refuses_uncompiled_transpose_plans(cuda):
+    """The C entry point takes only the plans it compiled: access widths
+    that are powers of two from the element size to 16 bytes (b's up to 8
+    elements) dividing pitch and pointer, the exact grid; the wrapper
+    raises on a refusal."""
+    lib = _kernels.load()
+    D, B, A = 4, 72, 1920
+    aT = _volume(0, (D, B, A)).to(cuda)
+    a16 = aT.to(bf16)
+    b16 = _volume(1, (D, A, B)).to(cuda).to(bf16)
+    out = torch.empty((D, A, B), dtype=bf16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    cost = _kernels.transpose_add_plan(D, B, A, u8, bf16, False, 132)
+    summed = _kernels.transpose_add_plan(D, B, A, bf16, bf16, True, 132)
+
+    def call(a, b, plan, in_type):
+        return lib.sgm_transpose_add(
+            a.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), D, B, A, in_type, 1, *plan[:4], *plan.grid,
+            stream)
+
+    assert call(aT, None, cost, 0) == 0
+    assert call(a16, b16, summed, 1) == 0
+    for plan in (cost._replace(wa=32), cost._replace(wa=3),
+                 cost._replace(wb=4), cost._replace(wo=1),
+                 cost._replace(wo=32), cost._replace(dpb=0),
+                 cost._replace(grid=(cost.grid[0] + 1,) + cost.grid[1:]),
+                 cost._replace(grid=cost.grid[:2] + (cost.grid[2] + 1,))):
+        assert call(aT, None, plan, 0) != 0, plan
+    for plan in (summed._replace(wa=1), summed._replace(wb=0),
+                 summed._replace(wb=32)):
+        assert call(a16, b16, plan, 1) != 0, plan
+    # a width the pointer's alignment does not allow
+    view = _offset_volume(2, (D, B, A), u8, 4, cuda)
+    assert call(view, None, cost, 0) != 0
+    # an unknown output type
+    assert lib.sgm_transpose_add(aT.data_ptr(), None, out.data_ptr(), D, B,
+                                 A, 0, 0, *cost[:4], *cost.grid, stream) != 0
+    with pytest.raises(RuntimeError, match="sgm_transpose_add launch failed"):
+        _kernels._raise_on(lib, call(view, None, cost, 0),
+                           "sgm_transpose_add")
+
+
 @pytest.mark.gpu
 def test_sgm_serve_path_launches_the_kernels(cuda):
     from steroscopic_hardware_tpu_torch.models.blockmatch import SGMMatcher

@@ -10,7 +10,8 @@ Phases, one line each; the first that fails ends the run with a non-zero
 exit code:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions,
      the kernel build time and ptxas's registers and spill bytes per kernel
-     (fails if a SAD sweep or sgm_transpose_add instantiation spills);
+     (fails if a SAD sweep, sgm_transpose_add or sgm_epilogue
+     instantiation spills);
   2. SAD kernel == plain on the card, exact, at 1080p and ragged shapes, a
      4-frame batch, and sad_lr with and without costs; at the sweep's edges
      (W not a multiple of its 128-column strip, W < maxD, b63 d511, right-map
@@ -24,7 +25,10 @@ exit code:
      its launch plan (D 1..288, S 1 / 2 / 7, ragged K), and
      sgm_transpose_add at each access width of its plan, at the 1080-byte
      uint8 rows of the served cost volume and at ragged tile edges, in all
-     six type combinations; integers exact, floats within 1e-5 (max abs
+     six type combinations, and sgm_epilogue in all three tiers at each
+     access width of its plan, at ragged tile edges, at D 1 and 288, on
+     the sharded engine's 1080-row W-bands (960 / 480 / 240 columns);
+     integers and sgm_epilogue exact, other floats within 1e-5 (max abs
      error printed);
   3. ground truth: a 1080p textured pair with a known piecewise-constant
      shift field; the SAD kernels must recover it on >= 90% of the pixels
@@ -39,8 +43,11 @@ exit code:
      each before and after a retune to maxDisparity 128;
   5. kernel and plain times at 1080p (CUDA events, median of 20 after 3
      warm-ups), SAD (sad_lr also with costs; b16 d64, b7 d128, b31 d256) and
-     each SGM stage, beside each kernel's bound and, for B4, the one
-     PyTorch call that computes the same function.
+     each SGM stage (sgm_epilogue in all three tiers), beside each
+     kernel's bound and, for B4, the one PyTorch call that computes the
+     same function;
+  5f. the device time of one 1080p d64 SGM frame through the fused chain
+     (B5) against the served, unfused one (torch.profiler).
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -81,6 +88,9 @@ MEM_BPS = 3.35e12
 F32_OPS = 67e12
 I32_OPS = 132 * 64 * 1.98e9
 SGM_TOL = 1e-5  # float maps, kernel vs plain (both round as torch does)
+# kernels whose instantiations must not spill (ptxas, phase 1)
+SPILL_CHECKED = ("sad_kernel", "sgm_transpose_add_kernel",
+                 "sgm_epilogue_kernel")
 
 
 def fail(msg: str):
@@ -116,10 +126,12 @@ def phase_build():
     _kernels.load()
     with open(path[:-3] + ".log") as f:
         usage = ptxas_usage(f.read())
-    spilled = [u for u in usage if u[2] and u[0].startswith(
-        ("void sad_", "void sgm_transpose_add"))]
+    if not any("sgm_epilogue_kernel" in u[0] for u in usage):
+        fail("ptxas reported no sgm_epilogue instantiation")
+    spilled = [u for u in usage
+               if u[2] and any(k in u[0] for k in SPILL_CHECKED)]
     if spilled:
-        fail(f"SAD sweep or B4 instantiations spill: {spilled}")
+        fail(f"SAD sweep, B4 or B5 instantiations spill: {spilled}")
     say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; nvcc build "
         f"{seconds:.2f} s for sm_90a; ptxas: "
@@ -547,7 +559,7 @@ def phase_sgm_exact():
                 check("sgm_epilogue", f"{tag} {dt} subpixel={sub}",
                       sgm.sgm_epilogue(agg_v, agg_ht, subpixel=sub),
                       sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=sub),
-                      sub)
+                      False)
             del agg_v, agg_ht
             _free()
     # sgm_aggregate at its launch plan's edges, in all six tiers: D at each
@@ -578,6 +590,14 @@ def phase_sgm_exact():
                    f"and ragged cases: "
                    f"{max(float(r.rsplit(': ', 1)[1]) for r in b4)}")
     n_edges += len(b4)
+    n_b5 = len(results)
+    check_epilogue_edges(rng, check)
+    b5 = results[n_b5:]
+    del results[n_b5:]
+    results.append(f"sgm_epilogue at {len(b5)} access-width, ragged, "
+                   f"D 1 / 288 and W-band cases: "
+                   f"{max(float(r.rsplit(': ', 1)[1]) for r in b5)}")
+    n_edges += len(b5)
     say(f"phase 2s ok: SGM kernel vs plain, max abs error per case "
         f"({n_edges + len(edges)} cases; {'; '.join(results)})")
     return errs
@@ -629,6 +649,52 @@ def check_transpose_widths(rng, check):
         one(f"1080-byte rows (65, {W}, {H}) +{off} B",
             vol((65, W, H), u8, off, high=25), None, bf16)
     _free()
+
+
+def check_epilogue_edges(rng, check):
+    """B5 against its plain version, integer and subpixel, exactly (max abs
+    error 0), in all three tiers: at each access width of agg_v and agg_ht
+    (views at base pointers 16, 8, 4, 2 and 1 bytes aligned, on rows whose
+    pitch allows 16), at ragged tile edges, at D 1 and 288, and on the
+    W-bands of the 2-, 4- and 8-way sharded engine at 1080p (960, 480 and
+    240 columns)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    def vol(shape, dtype, offset=0):
+        n = int(np.prod(shape))
+        size = torch.empty((), dtype=dtype).element_size()
+        flat = torch.from_numpy(rng.integers(0, 120, n + 16, dtype=np.uint8)
+                                ).cuda().to(dtype)
+        return flat[offset // size:offset // size + n].view(shape)
+
+    def one(tag, agg_v, agg_ht):
+        D, h, w = agg_v.shape
+        plan = _kernels.sgm_epilogue_plan(
+            D, h, w, agg_v.dtype,
+            _kernels.pointer_alignment(agg_v.data_ptr()),
+            _kernels.pointer_alignment(agg_ht.data_ptr()))
+        for sub in (False, True):
+            check("sgm_epilogue",
+                  f"{tag} {agg_v.dtype} wv{plan.wv} wh{plan.wh} "
+                  f"ring{plan.stages} subpixel={sub}",
+                  sgm.sgm_epilogue(agg_v, agg_ht, subpixel=sub),
+                  sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=sub), False)
+
+    for dt in (torch.uint8, torch.bfloat16, torch.float32):
+        size = torch.empty((), dtype=dt).element_size()
+        for off in (0, 8, 4, 2, 1):
+            if off % size == 0:
+                one(f"(5, 80, 208) +{off} B", vol((5, 80, 208), dt, off),
+                    vol((5, 208, 80), dt, off))
+        for D, h, w in ((1, 1, 1), (1, 37, 53), (2, 64, 64), (3, 65, 129),
+                        (7, 130, 66), (288, 70, 45), (288, 200, 300)):
+            one(f"ragged ({D}, {h}, {w})", vol((D, h, w), dt),
+                vol((D, w, h), dt))
+        for w in (960, 480, 240):
+            one(f"W-band (65, {H}, {w})", vol((65, H, w), dt),
+                vol((65, w, H), dt))
+        _free()
 
 
 def phase_sgm_truth(left, right, truth, edges, maxd=64):
@@ -810,12 +876,16 @@ def phase_sgm_times(card, maxd=64):
          lambda: sgm.aggregate_axis(cost_t, 1.0, 8.0, out_dtype=u8),
          lambda: sgm.aggregate_axis_plain(cost_t, 1.0, 8.0, out_dtype=u8),
          V * (1 + 1), agg_ops, None),
-        # per element: add, compare, and the running-state selects
-        ("sgm_epilogue", "u8 x2 -> f32 subpixel",
-         lambda: sgm.sgm_epilogue(agg_v8, agg_ht8, subpixel=True),
-         lambda: sgm.sgm_epilogue_plain(agg_v8, agg_ht8, subpixel=True),
-         V * (1 + 1) + H * W * size[f32], 3 * V, None),
     ]
+    agg_v32, agg_ht32 = agg_v.float(), agg_ht.float()
+    # per element: add, compare, and the running-state selects
+    for tier, v, ht in (("u8", agg_v8, agg_ht8), ("bf16", agg_v, agg_ht),
+                        ("f32", agg_v32, agg_ht32)):
+        stages.append((
+            "sgm_epilogue", f"{tier} x2 -> f32 subpixel",
+            lambda v=v, ht=ht: sgm.sgm_epilogue(v, ht, subpixel=True),
+            lambda v=v, ht=ht: sgm.sgm_epilogue_plain(v, ht, subpixel=True),
+            V * 2 * v.element_size() + H * W * size[f32], 3 * V, None))
     out = []
     for name, what, kernel, plain, nbytes, ops, library in stages:
         ms, plain_ms = _time_ms(kernel), _time_ms(plain)
@@ -832,6 +902,35 @@ def phase_sgm_times(card, maxd=64):
         _free()
     say("phase 5s ok")
     return out
+
+
+def phase_fused_frame(card, left, right, maxd=64, frames=10):
+    """Device time of one 1080p SGM frame through the fused chain
+    (sgm_disparity(epilogue="fused"): B5) against the served, unfused one
+    (B4's summed form, plain argmin and parabola), by torch.profiler over
+    ``frames`` frames of each after 3 warm-ups; both give the same map."""
+    from steroscopic_hardware_tpu_torch.sgm_probe import (
+        profile_frames, sgm_frame)
+
+    L, R = to_cuda(left, right)
+    row = {}
+    for chain in ("unfused", "fused"):
+        per, _ = profile_frames(
+            lambda: sgm_frame(L, R, maxd, False, chain == "fused"), frames)
+        if not per:
+            fail(f"the profiler saw no kernel of the {chain} chain")
+        b5 = sum(us for n, (us, _) in per.items() if "sgm_epilogue" in n)
+        row[chain] = (sum(us for us, _ in per.values()) / 1e3 / frames,
+                      sum(n for _, n in per.values()) / frames,
+                      b5 / 1e3 / frames)
+    if row["fused"][2] <= 0.0:
+        fail("the fused chain's profile holds no sgm_epilogue kernel")
+    say(f"phase 5f: one 1080p d{maxd} SGM frame, device time of all "
+        f"kernels (torch.profiler, {frames} frames): fused chain "
+        f"{row['fused'][0]:.4f} ms in {row['fused'][1]:.1f} launches "
+        f"(B5 {row['fused'][2]:.4f} ms), unfused (served) chain "
+        f"{row['unfused'][0]:.4f} ms in {row['unfused'][1]:.1f} launches "
+        f"({card})")
 
 
 def sad_bound(name, maxd=64):
@@ -870,6 +969,7 @@ def main() -> int:
     _free()
     times = phase_times(card)
     sgm_times = phase_sgm_times(card)
+    phase_fused_frame(card, left, right)
     kernels = []
     for name in ("sad_wta", "sad_lr"):
         ms, plain_ms = times[(name, 16, 64)]

@@ -133,7 +133,7 @@ def load() -> ctypes.CDLL:
             lib.sgm_aggregate.restype = i32
             lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
             lib.sgm_transpose_add.restype = i32
-            lib.sgm_epilogue.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.sgm_epilogue.argtypes = [ptr] * 3 + [i32] * 10 + [ptr]
             lib.sgm_epilogue.restype = i32
             lib.sad_error_string.argtypes = [i32]
             lib.sad_error_string.restype = ctypes.c_char_p
@@ -522,6 +522,55 @@ def sgm_transpose_add(aT, b, out_dtype):
     return out
 
 
+# B5 (csrc/sgm.cu): a block owns EPILOGUE_TILE x EPILOGUE_TILE pixels and
+# walks all D planes, both volumes' tiles of a plane staged into one slot of
+# a ring. The ring depths the library compiled, and the one each type takes.
+EPILOGUE_TILE = 64
+EPILOGUE_RINGS = (2, 3, 4)
+EPILOGUE_RING = {torch.uint8: 4, torch.bfloat16: 3, torch.float32: 3}
+EPILOGUE_MAX_PLANE = 2 ** 30          # H * W: 32-bit in-plane offsets
+
+
+class EpiloguePlan(NamedTuple):
+    wv: int      # bytes per load of agg_v (along x)
+    wh: int      # bytes per load of agg_ht (along y)
+    stages: int  # ring slots: planes in flight + 1
+    grid: tuple  # (x tiles, y tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def sgm_epilogue_plan(D: int, H: int, W: int, dtype, align_v: int = 16,
+                      align_ht: int = 16) -> EpiloguePlan:
+    """Launch plan of ``sgm_epilogue`` for agg_v (D, H, W) and agg_ht
+    (D, W, H) of ``dtype`` with base pointers aligned to ``align_*`` bytes.
+
+    Each access width is the widest of 16, 8, 4, 2, 1 bytes, no narrower
+    than an element, that divides the row pitch (W elements for agg_v, H
+    for agg_ht) and the base pointer: at 1080p uint8 16 bytes on agg_v's
+    1920-byte rows, 8 on agg_ht's 1080-byte rows. The grid has one block
+    per 64 x 64 pixel tile (two blocks an SM: the registers of the pixels'
+    running state allow no more). The ring takes 4 slots for uint8 (8 KB
+    each) and 3 for bfloat16 and float32 (16 and 32 KB), from the depths
+    timed at 1080p and on a 240-column W-band (``sgm_probe --epilogue
+    --plans``). Raises ValueError for a volume the kernel does not
+    take."""
+    if dtype not in EPILOGUE_RING:
+        raise ValueError(f"aggregates must be uint8, bfloat16 or float32, "
+                         f"got {dtype}")
+    if min(D, H, W) < 1:
+        raise ValueError(f"empty volume {(D, H, W)}")
+    if H * W > EPILOGUE_MAX_PLANE:
+        raise ValueError(f"plane {H} x {W} above {EPILOGUE_MAX_PLANE} "
+                         f"elements")
+    s = dtype.itemsize
+    wv = _access_width("agg_v", s, 16, W * s, align_v)
+    wh = _access_width("agg_ht", s, 16, H * s, align_ht)
+    grid = (-(-W // EPILOGUE_TILE), -(-H // EPILOGUE_TILE))
+    if grid[1] > GRID_YZ_MAX:
+        raise ValueError(f"grid {grid} beyond CUDA's limits")
+    return EpiloguePlan(wv, wh, EPILOGUE_RING[dtype], grid)
+
+
 def sgm_epilogue(agg_v, agg_ht, subpixel: bool):
     """float32 (H, W) disparity: first-min argmin over d of agg_v (D, H, W)
     + agg_ht (D, W, H) transposed, with the parabola when ``subpixel``."""
@@ -535,11 +584,14 @@ def sgm_epilogue(agg_v, agg_ht, subpixel: bool):
                          f"{agg_ht.dtype} on {agg_ht.device}")
     with torch.cuda.device(agg_v.device):
         lib = load()
+        plan = sgm_epilogue_plan(D, H, W, agg_v.dtype,
+                                 pointer_alignment(agg_v.data_ptr()),
+                                 pointer_alignment(agg_ht.data_ptr()))
         out = torch.empty((H, W), dtype=torch.float32, device=agg_v.device)
         stream = torch.cuda.current_stream(agg_v.device).cuda_stream
         err = lib.sgm_epilogue(agg_v.data_ptr(), agg_ht.data_ptr(),
                                out.data_ptr(), D, H, W, in_type,
-                               int(subpixel), stream)
+                               int(subpixel), *plan[:3], *plan.grid, stream)
     _raise_on(lib, err, "sgm_epilogue")
     launches["sgm_epilogue"] += 1
     return out

@@ -82,18 +82,29 @@
 // the 1080-byte uint8 rows of the served cost volume are not (they take
 // 8-byte accesses).
 //
-// B5, sgm_epilogue. agg_v (D, H, W) + agg_ht (D, W, H) -> disparity float32
-// (H, W): c(d) = agg_v[d] + agg_ht[d]^T in float32, a running first-minimum
-// argmin over increasing d (strict <), the neighbour costs captured in the
-// sweep (a win takes the previous slice as c0; the slice after the winner
-// gives c2), then the parabola
+// B5, sgm_epilogue (replaces _sgm_epilogue_pallas,
+// steroscopic_hardware_tpu/ops/sgm.py:550). agg_v (D, H, W) + agg_ht
+// (D, W, H) -> disparity float32 (H, W): c(d) = agg_v[d] + agg_ht[d]^T in
+// float32, a running first-minimum argmin over increasing d (strict <),
+// the neighbour costs captured in the sweep (a win takes the previous
+// slice as c0; the slice after the winner gives c2), then the parabola
 //   denom = max(c0 - 2 best + c2, 1e-6), delta = clip(0.5 (c0 - c2) / denom)
 // for 1 <= d <= D - 2, with each operation rounded as torch rounds it
-// (explicit _rn intrinsics: no FMA contraction). One block per 32 x 32
-// pixel tile loops over d; the agg_ht slice is transposed through shared
-// memory so both volumes are read coalesced; best, bestd, c0, c2, prev
-// live in registers. The summed volume never reaches memory. Bound:
-// memory, both volumes read once plus the (H, W) map.
+// (explicit _rn intrinsics: no FMA contraction). The summed volume never
+// reaches memory. Bound on the H100: bytes, both volumes read once and the
+// map written once (1080p d64 uint8: 273 MB, 83 us at 3.35 TB/s). The
+// first kernel (a 32 x 32 tile a block, one-element loads, one plane in
+// flight behind two block barriers a plane) reached 16% of it. This one
+// gives each block a 64 x 64 pixel tile, stages both volumes' tiles of
+// each plane by cp.async in 16-byte vectors where the row pitch and base
+// pointer allow it, else 8, 4 or one element (the launch plan picks them:
+// 8 bytes on the 1080-byte uint8 rows of agg_ht), into a ring of 3 or 4
+// slots in B4's swizzled layout, so several planes are in flight, behind
+// one block barrier a plane. The argmin runs over all d, so the d range is
+// not split: a thread keeps its 16 pixels' running state in registers for
+// the whole sweep (splitting d over warps would multiply that state by the
+// chunks and bring no more bytes in flight than the ring does). uint8
+// sums in int: no conversion in the d loop.
 //
 // C interface (bound with ctypes): device pointers, sizes, type codes and
 // the CUDA stream; each launches on that stream on the current device
@@ -495,9 +506,17 @@ struct TransposePlan {
   int wa, wb, wo, dpb;  // bytes per access of aT, b, out; planes per block
 };
 
-__device__ __forceinline__ int tp_swizzle(int r, int x) {
-  return r * TP_ROW + ((((x >> 4) ^ (r >> 3)) & 7) << 4) + (x & 15);
+// Byte x of row r of a staged tile of ROW-byte rows: its 16-byte chunk
+// (x / 16) ^ (r >> SHIFT), modulo the row's chunks, so that rows a warp
+// reads at once fall in different banks and every piece of up to 16 bytes
+// stays whole. B4: 128-byte rows, SHIFT 3 (the 8 rows a warp reads, 8
+// apart, in 8 chunks); B5 uses the same layout (see its section).
+template <int ROW, int SHIFT>
+__device__ __forceinline__ int tile_swizzle(int r, int x) {
+  return r * ROW + ((((x >> 4) ^ (r >> SHIFT)) & (ROW / 16 - 1)) << 4) + (x & 15);
 }
+
+__device__ __forceinline__ int tp_swizzle(int r, int x) { return tile_swizzle<TP_ROW, 3>(r, x); }
 
 template <int N>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
@@ -518,22 +537,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage the tile of one plane: rows b0 .. b0 + TP_TB - 1 of aT from byte
-// x0 of each row (pitch bytes a row), in W-byte pieces: cp.async for 4, 8
+// Stage the tile of one plane: rows b0 .. b0 + ROWS - 1 of a volume from
+// byte x0 of each row (pitch bytes a row), ROW bytes a row, swizzled
+// (tile_swizzle), by THREADS threads, in W-byte pieces: cp.async for 4, 8
 // and 16 bytes, a plain load and store below. W divides the pitch, so a
 // piece lies wholly inside the row or wholly past its end.
-template <int W>
-__device__ __forceinline__ void tp_stage(uint8_t* tile, const uint8_t* plane,
-                                         uint32_t pitch, int b0, int B, uint32_t x0) {
-  constexpr int PER_ROW = TP_ROW / W;
+template <int W, int ROW, int ROWS, int THREADS, int SHIFT>
+__device__ __forceinline__ void tile_stage(uint8_t* tile, const uint8_t* plane,
+                                           uint32_t pitch, int b0, int B, uint32_t x0) {
+  constexpr int PER_ROW = ROW / W;
   // rolled: unrolled (2 to 32 pieces a thread), the pieces' addresses are
   // hoisted out of the plane loop and held in registers (up to 128 a
   // thread for uint8, and spills)
 #pragma unroll 1
-  for (int q = threadIdx.x; q < TP_TB * PER_ROW; q += TP_THREADS) {
+  for (int q = threadIdx.x; q < ROWS * PER_ROW; q += THREADS) {
     const int r = q / PER_ROW, x = (q % PER_ROW) * W;
     if (b0 + r >= B || x0 + x >= pitch) continue;
-    uint8_t* dst = tile + tp_swizzle(r, x);
+    uint8_t* dst = tile + tile_swizzle<ROW, SHIFT>(r, x);
     const uint8_t* src = plane + static_cast<uint32_t>(b0 + r) * pitch + x0 + x;
     if constexpr (W >= 4) {
       cp_async<W>(dst, src);
@@ -542,6 +562,23 @@ __device__ __forceinline__ void tp_stage(uint8_t* tile, const uint8_t* plane,
     } else {
       *dst = __ldg(src);
     }
+  }
+}
+
+// tile_stage at the runtime width w (a width the element size SA allows)
+template <int SA, int ROW, int ROWS, int THREADS, int SHIFT>
+__device__ __forceinline__ void stage_plane(int w, uint8_t* tile, const uint8_t* plane,
+                                            uint32_t pitch, int b0, int B, uint32_t x0) {
+  switch (w) {
+    case 16: tile_stage<16, ROW, ROWS, THREADS, SHIFT>(tile, plane, pitch, b0, B, x0); break;
+    case 8: tile_stage<8, ROW, ROWS, THREADS, SHIFT>(tile, plane, pitch, b0, B, x0); break;
+    case 4: tile_stage<4, ROW, ROWS, THREADS, SHIFT>(tile, plane, pitch, b0, B, x0); break;
+    case 2:
+      if constexpr (SA <= 2) tile_stage<2, ROW, ROWS, THREADS, SHIFT>(tile, plane, pitch, b0, B, x0);
+      break;
+    default:
+      if constexpr (SA == 1) tile_stage<1, ROW, ROWS, THREADS, SHIFT>(tile, plane, pitch, b0, B, x0);
+      break;
   }
 }
 
@@ -634,13 +671,7 @@ __global__ void __launch_bounds__(TP_THREADS)
     const uint8_t* src =
         reinterpret_cast<const uint8_t*>(aT + static_cast<size_t>(d0 + i) * plane);
     const uint32_t x0 = static_cast<uint32_t>(a0) * SA;
-    switch (p.wa) {
-      case 16: tp_stage<16>(tile, src, pitch_a, b0, B, x0); break;
-      case 8: tp_stage<8>(tile, src, pitch_a, b0, B, x0); break;
-      case 4: tp_stage<4>(tile, src, pitch_a, b0, B, x0); break;
-      case 2: if constexpr (SA <= 2) tp_stage<2>(tile, src, pitch_a, b0, B, x0); break;
-      default: if constexpr (SA == 1) tp_stage<1>(tile, src, pitch_a, b0, B, x0); break;
-    }
+    stage_plane<SA, TP_ROW, TP_TB, TP_THREADS, 3>(p.wa, tile, src, pitch_a, b0, B, x0);
   };
 
 #pragma unroll
@@ -738,72 +769,207 @@ bool tp_width_ok(int w, int elem, int cap, long long pitch, const void* ptr) {
 
 // -- B5 ------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-    sgm_epilogue_kernel(const T* __restrict__ agg_v, const T* __restrict__ agg_ht,
-                        float* __restrict__ out, int D, int H, int W, int subpixel) {
-  __shared__ float tile[32][33];  // tile[x - x0][y - y0] of agg_ht[d]
-  const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const int x = x0 + tx;
-  float best[4], c0[4], c2[4], prev[4];
-  int bestd[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    best[q] = c0[q] = c2[q] = prev[q] = INF;
-    bestd[q] = 0;
+// A block owns an EP_T x EP_T pixel tile (x0 .., y0 ..) and walks all D
+// planes. Per plane it stages two tiles into one slot of a ring of STAGES
+// slots (2, 3 or 4; a slot is 8 KB for uint8, 16 KB for bfloat16, 32 KB for
+// float32), each in its own type by cp.async: the agg_v tile (EP_T rows y of
+// EP_T values x) and the agg_ht tile (EP_T rows x of EP_T values y), rows
+// swizzled as B4's (tile_swizzle, SHIFT EP_SHIFT). A thread owns a 4 x 4
+// micro-tile: it reads 4 values of x from each of 4 rows of the agg_v tile
+// and 4 values of y from each of 4 rows of the agg_ht tile (one 4-value
+// vector per row; warp w, lane l: tx = l % 8 + 8 (w % 2), ty = 4 (w / 2) +
+// l / 8, which with SHIFT 2 keeps the reads within 1-2x of the least
+// shared-memory wavefronts in all three types).
+constexpr int EP_T = 64;
+constexpr int EP_THREADS = 256;
+constexpr int EP_SHIFT = 2;
+
+struct EpiloguePlan {
+  int wv, wh;  // bytes per access of agg_v, agg_ht
+};
+
+// The cost arithmetic of a storage type. uint8 sums in int: the values
+// and their sums are integers below 2^24, so each comparison, and each
+// value converted to float at the end, is float32's, and no conversion
+// sits in the d loop. bfloat16 and float32 widen and add with __fadd_rn.
+// get(w, e): value e of a 4-value vector held in words w.
+template <typename T> struct EpCost;
+template <> struct EpCost<uint8_t> {
+  using C = int;
+  static constexpr int inf = 1000000000;  // INF, exact as float
+  static __device__ __forceinline__ int get(const uint32_t* w, int e) {
+    return static_cast<int>((w[0] >> (8 * e)) & 0xffu);
   }
-  for (int d = 0; d < D; ++d) {
-    const size_t off = static_cast<size_t>(d) * plane;
-    for (int r = ty; r < 32; r += 8) {
-      const int xx = x0 + r, yy = y0 + tx;
-      tile[r][tx] =
-          (xx < W && yy < H) ? widen(agg_ht[off + static_cast<size_t>(xx) * H + yy]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = ty + 8 * q, y = y0 + r;
-      const float c = (y < H && x < W)
-                          ? __fadd_rn(widen(agg_v[off + static_cast<size_t>(y) * W + x]),
-                                      tile[tx][r])
-                          : 0.f;
-      if (c < best[q]) {
-        c0[q] = prev[q];
-        best[q] = c;
-        bestd[q] = d;
-      }
-      if (bestd[q] == d - 1) c2[q] = c;
-      prev[q] = c;
-    }
-    __syncthreads();
+  static __device__ __forceinline__ int add(int a, int b) { return a + b; }
+};
+template <> struct EpCost<__nv_bfloat16> {
+  using C = float;
+  static constexpr float inf = INF;
+  static __device__ __forceinline__ float get(const uint32_t* w, int e) {
+    const uint32_t x = w[e >> 1];
+    return __uint_as_float((e & 1) ? (x & 0xffff0000u) : (x << 16));
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int y = y0 + ty + 8 * q;
-    if (y >= H || x >= W) continue;
-    const float db = static_cast<float>(bestd[q]);
-    float v = db;
-    if (subpixel && bestd[q] >= 1 && bestd[q] <= D - 2) {
-      const float denom =
-          fmaxf(__fadd_rn(__fsub_rn(c0[q], __fmul_rn(2.f, best[q])), c2[q]), 1e-6f);
-      const float delta = fminf(
-          fmaxf(__fdiv_rn(__fmul_rn(0.5f, __fsub_rn(c0[q], c2[q])), denom), -0.5f), 0.5f);
-      v = __fadd_rn(db, delta);
-    }
-    out[static_cast<size_t>(y) * W + x] = v;
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+};
+template <> struct EpCost<float> {
+  using C = float;
+  static constexpr float inf = INF;
+  static __device__ __forceinline__ float get(const uint32_t* w, int e) {
+    return __uint_as_float(w[e]);
+  }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+};
+
+// the NW words at a 4 NW-byte aligned shared-memory address
+template <int NW>
+__device__ __forceinline__ void ep_words(uint32_t (&w)[NW], const uint8_t* src) {
+  if constexpr (NW == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (NW == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(src);
   }
 }
 
-template <typename T>
-cudaError_t launch_epilogue(const void* agg_v, const void* agg_ht, void* out, int D,
-                            int H, int W, int subpixel, cudaStream_t stream) {
-  const dim3 grid((W + 31) / 32, (H + 31) / 32), block(32, 8);
-  sgm_epilogue_kernel<T><<<grid, block, 0, stream>>>(
+// One block: one tile through all D planes, STAGES - 1 planes in flight
+// (cp.async) ahead of the one it reads, one block barrier a plane. The
+// running state of the 16 pixels of a thread (best, bestd, c0, c2, prev)
+// stays in registers; only the (H, W) map is written.
+template <typename T, int STAGES>
+__global__ void __launch_bounds__(EP_THREADS, 2)
+    sgm_epilogue_kernel(const T* __restrict__ agg_v, const T* __restrict__ agg_ht,
+                        float* __restrict__ out, int D, int H, int W, int subpixel,
+                        int vec_out, EpiloguePlan p) {
+  using E = EpCost<T>;
+  using C = typename E::C;
+  constexpr int S = sizeof(T), ROW = EP_T * S, TILE = EP_T * ROW;
+  constexpr int NW = S;  // words of a 4-value vector
+  extern __shared__ __align__(16) uint8_t ep_ring[];  // [STAGES][agg_v, agg_ht][TILE]
+  const int x0 = blockIdx.x * EP_T, y0 = blockIdx.y * EP_T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = (lane & 7) + 8 * (warp & 1), ty = 4 * (warp >> 1) + (lane >> 3);
+  const uint32_t plane = static_cast<uint32_t>(H) * static_cast<uint32_t>(W);
+  const uint32_t pitch_v = static_cast<uint32_t>(W) * S, pitch_h = static_cast<uint32_t>(H) * S;
+
+  auto stage = [&](int d) {
+    uint8_t* slot = ep_ring + (d % STAGES) * 2 * TILE;
+    const size_t off = static_cast<size_t>(d) * plane;
+    stage_plane<S, ROW, EP_T, EP_THREADS, EP_SHIFT>(
+        p.wv, slot, reinterpret_cast<const uint8_t*>(agg_v + off), pitch_v, y0, H,
+        static_cast<uint32_t>(x0) * S);
+    stage_plane<S, ROW, EP_T, EP_THREADS, EP_SHIFT>(
+        p.wh, slot + TILE, reinterpret_cast<const uint8_t*>(agg_ht + off), pitch_h, x0, W,
+        static_cast<uint32_t>(y0) * S);
+  };
+
+  // pixel q = 4 j + i of this thread: (x0 + 4 tx + i, y0 + 4 ty + j)
+  C best[16], c0[16], c2[16], prev[16];
+  int bestd[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    best[q] = c0[q] = c2[q] = prev[q] = E::inf;
+    bestd[q] = 0;
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < D) stage(s);
+    cp_async_commit();
+  }
+  for (int d = 0; d < D; ++d) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of plane d
+    __syncthreads();              // everyone's; and plane d - 1 is read
+    if (d + STAGES - 1 < D) stage(d + STAGES - 1);
+    cp_async_commit();
+
+    const uint8_t* tv = ep_ring + (d % STAGES) * 2 * TILE;
+    const uint8_t* th = tv + TILE;
+    uint32_t wh[4][NW];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ep_words<NW>(wh[i], th + tile_swizzle<ROW, EP_SHIFT>(4 * tx + i, 4 * ty * S));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t wv[NW];
+      ep_words<NW>(wv, tv + tile_swizzle<ROW, EP_SHIFT>(4 * ty + j, 4 * tx * S));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 4 * j + i;
+        const C c = E::add(E::get(wv, i), E::get(wh[i], j));
+        if (c < best[q]) {
+          c0[q] = prev[q];
+          best[q] = c;
+          bestd[q] = d;
+        }
+        if (bestd[q] == d - 1) c2[q] = c;
+        prev[q] = c;
+      }
+    }
+  }
+
+  const int x = x0 + 4 * tx;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int y = y0 + 4 * ty + j;
+    if (y >= H || x >= W) continue;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = 4 * j + i;
+      const float db = static_cast<float>(bestd[q]);
+      v[i] = db;
+      if (subpixel && bestd[q] >= 1 && bestd[q] <= D - 2) {
+        const float b = static_cast<float>(best[q]), l = static_cast<float>(c0[q]),
+                    r = static_cast<float>(c2[q]);
+        const float denom = fmaxf(__fadd_rn(__fsub_rn(l, __fmul_rn(2.f, b)), r), 1e-6f);
+        const float delta =
+            fminf(fmaxf(__fdiv_rn(__fmul_rn(0.5f, __fsub_rn(l, r)), denom), -0.5f), 0.5f);
+        v[i] = __fadd_rn(db, delta);
+      }
+    }
+    float* o = out + static_cast<uint32_t>(y) * static_cast<uint32_t>(W) + x;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (x + i < W) o[i] = v[i];
+    }
+  }
+}
+
+template <typename T, int STAGES>
+cudaError_t launch_epilogue_ring(const void* agg_v, const void* agg_ht, void* out, int D,
+                                 int H, int W, int subpixel, int vec_out,
+                                 const EpiloguePlan& p, dim3 grid, cudaStream_t stream) {
+  const int smem = STAGES * 2 * EP_T * EP_T * static_cast<int>(sizeof(T));
+  const cudaError_t e = cudaFuncSetAttribute(
+      sgm_epilogue_kernel<T, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  sgm_epilogue_kernel<T, STAGES><<<grid, EP_THREADS, smem, stream>>>(
       static_cast<const T*>(agg_v), static_cast<const T*>(agg_ht), static_cast<float*>(out),
-      D, H, W, subpixel);
+      D, H, W, subpixel, vec_out, p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_epilogue(const void* agg_v, const void* agg_ht, void* out, int D, int H,
+                            int W, int subpixel, int vec_out, const EpiloguePlan& p,
+                            int stages, dim3 grid, cudaStream_t stream) {
+  switch (stages) {  // the ring depths compiled (_kernels.EPILOGUE_RINGS)
+    case 2:
+      return launch_epilogue_ring<T, 2>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out, p,
+                                        grid, stream);
+    case 3:
+      return launch_epilogue_ring<T, 3>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out, p,
+                                        grid, stream);
+    case 4:
+      return launch_epilogue_ring<T, 4>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out, p,
+                                        grid, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -882,15 +1048,37 @@ int sgm_transpose_add(const void* aT, const void* b, void* out, int D, int B, in
 }
 
 // out (H, W) float32 disparity from agg_v (D, H, W) and agg_ht (D, W, H) of one
-// type, both contiguous; subpixel 0 gives the integer argmin.
+// type (in_type 0 uint8, 1 bfloat16, 2 float32), all contiguous; subpixel 0
+// gives the integer argmin; H * W <= 2^30. The launch plan
+// (_kernels.sgm_epilogue_plan): wv / wh bytes per access of agg_v / agg_ht,
+// each a power of two from the element size up to 16 dividing its row pitch
+// (W / H elements) and base pointer; stages, the ring's slots (2, 3 or
+// 4); grid (gx, gy) exactly (ceil(W / 64), ceil(H / 64)). Any other plan is
+// refused.
 int sgm_epilogue(const void* agg_v, const void* agg_ht, void* out, int D, int H, int W,
-                 int in_type, int subpixel, void* stream) {
+                 int in_type, int subpixel, int wv, int wh, int stages, int gx, int gy,
+                 void* stream) {
+  const int sz = in_type == T_U8 ? 1 : in_type == T_BF16 ? 2 : in_type == T_F32 ? 4 : 0;
+  if (sz == 0 || D < 1 || H < 1 || W < 1 || static_cast<long long>(H) * W > (1ll << 30))
+    return cudaErrorInvalidValue;
+  const bool ok = tp_width_ok(wv, sz, 16, static_cast<long long>(W) * sz, agg_v) &&
+                  tp_width_ok(wh, sz, 16, static_cast<long long>(H) * sz, agg_ht) &&
+                  gx == (W + EP_T - 1) / EP_T && gy == (H + EP_T - 1) / EP_T && gy <= 65535;
+  if (!ok) return cudaErrorInvalidValue;
+  const int vec_out = W % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const EpiloguePlan p{wv, wh};
+  const dim3 grid(gx, gy);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_type) {
-    case T_U8: return launch_epilogue<uint8_t>(agg_v, agg_ht, out, D, H, W, subpixel, s);
+    case T_U8:
+      return launch_epilogue<uint8_t>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out, p,
+                                       stages, grid, s);
     case T_BF16:
-      return launch_epilogue<__nv_bfloat16>(agg_v, agg_ht, out, D, H, W, subpixel, s);
-    case T_F32: return launch_epilogue<float>(agg_v, agg_ht, out, D, H, W, subpixel, s);
+      return launch_epilogue<__nv_bfloat16>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out,
+                                             p, stages, grid, s);
+    case T_F32:
+      return launch_epilogue<float>(agg_v, agg_ht, out, D, H, W, subpixel, vec_out, p,
+                                     stages, grid, s);
   }
   return cudaErrorInvalidValue;
 }

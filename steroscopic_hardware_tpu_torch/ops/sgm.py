@@ -156,7 +156,7 @@ def epilogue(agg: torch.Tensor, subpixel: bool) -> torch.Tensor:
     TPU used masked reductions, the same values)."""
     D = agg.shape[0]
     d_best = argmin_first(agg)
-    if not subpixel:
+    if not subpixel or D < 3:  # below 3 planes no d lies in [1, D - 2]
         return d_best.to(torch.float32)
     d_c = d_best.clamp(1, D - 2)
     c0, c1, c2 = (agg.gather(0, (d_c + k)[None])[0].to(torch.float32)

@@ -1,10 +1,12 @@
 """SGM probe on one GPU: times B3 (``sgm_aggregate``) through its wrapper at
 1920x1080, B3 under every launch plan its kernels take (``--plans``), the
-device time of served SGM frames by kernel (``--profile``), and B4
-(``sgm_transpose_add``) alone (``--transpose``).
+device time of served SGM frames by kernel (``--profile``), B4
+(``sgm_transpose_add``) alone (``--transpose``) and B5 (``sgm_epilogue``)
+alone (``--epilogue``).
 
-    python -m steroscopic_hardware_tpu_torch.sgm_probe [--plans] [--profile] \
-        [--transpose] [--maxd 64] [--out FILE]
+    python -m steroscopic_hardware_tpu_torch.sgm_probe [--plans] \
+        [--profile [--fused]] [--transpose | --epilogue] [--maxd 64] \
+        [--out FILE]
 
 The first line is the card (``nvidia-smi`` name and power limit). Then one
 JSON line per measurement; with ``--out`` all of them also go there as a
@@ -14,19 +16,29 @@ vertical pass (D, H, W) from bfloat16, the horizontal one (D, W, H) from
 uint8, each stored in bfloat16 (the served chain) or uint8 (the fused
 one). ``--plans`` checks every plan's output against the wrapper's before
 timing it. ``--profile`` runs ``models.blockmatch.sgm_one`` (without and
-with the LR check) on a seeded textured pair, 10 frames after 3 warm-ups,
-under ``torch.profiler``: per kernel its device time and launches per
-frame, and per frame the sum of all kernels' device time beside the wall
-time between two CUDA events around the 10 frames, and beside the frame's
-time without the profiler (the median of 10). ``--transpose`` replaces the
-B3 rows with B4's three served forms at 1080p on seeded volumes: the cost
-form uint8 (D, W, H) -> bfloat16 (D, H, W), and the summed form (D, W, H)
-+ (D, H, W) bfloat16 -> bfloat16 and -> float32 (the float32 tier), each
-through the wrapper beside its byte bound; with ``--plans`` also under
-launch plans around the one ``_kernels.transpose_add_plan`` picks (each
-access width the library takes at that shape, and other d planes per
-block), each checked against the wrapper's output. Without ``--plans`` it
-uses only the wrapper, so a copy of this file times a parent commit.
+with the LR check; with ``--fused`` also the same frame through
+``sgm_disparity(epilogue="fused")``, B5's chain) on a seeded textured
+pair, 10 frames after 3 warm-ups, under ``torch.profiler``: per kernel its
+device time and launches per frame, and per frame the sum of all kernels'
+device time beside the wall time between two CUDA events around the 10
+frames, and beside the frame's time without the profiler (the median of
+10). ``--transpose`` replaces the B3 rows with B4's three served forms at
+1080p on seeded volumes: the cost form uint8 (D, W, H) -> bfloat16 (D, H,
+W), and the summed form (D, W, H) + (D, H, W) bfloat16 -> bfloat16 and ->
+float32 (the float32 tier), each through the wrapper beside its byte
+bound; with ``--plans`` also under launch plans around the one
+``_kernels.transpose_add_plan`` picks (each access width the library
+takes at that shape, and other d planes per block), each checked against
+the wrapper's output. ``--epilogue`` replaces them with B5 at 1080p,
+subpixel, on seeded aggregates in each storage tier (uint8, bfloat16,
+float32): through the wrapper, and the kernel alone (its device time per
+launch under ``torch.profiler``, 20 launches after 3 warm-ups), beside the
+byte bound; with ``--plans`` also under launch plans around the one
+``_kernels.sgm_epilogue_plan`` picks (each ring depth the library
+compiled, each narrower access width), at 1080p and on a 240-column
+W-band of the frame, each checked against the wrapper's output. Without
+``--plans``, ``--transpose`` and ``--epilogue`` use only the wrappers, so
+a copy of this file times a parent commit.
 """
 
 from __future__ import annotations
@@ -220,21 +232,15 @@ def _transpose_plans(form, maxd, aT, b, outd):
     return rows
 
 
-def probe_profile(maxd, lr, frames=10):
+def profile_frames(frame, frames=10, warmup=3):
+    """Device time by kernel of ``frame()`` under ``torch.profiler``, after
+    ``warmup`` unprofiled calls: ({kernel name: (us, launches)} over the
+    ``frames`` calls, wall ms of the profiled calls between two CUDA
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
-    from steroscopic_hardware_tpu_torch.serve_probe import textured_pair
-
-    left, right = (torch.from_numpy(a).cuda()
-                   for a in textured_pair(SEED, H, W))
-
-    def frame():
-        sgm_one(left, right, max_disparity=maxd, p1=1.0, p2=8.0,
-                subpixel=True, lr=lr, threshold=1.0)
-
-    for _ in range(3):
+    for _ in range(warmup):
         frame()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -251,15 +257,148 @@ def probe_profile(maxd, lr, frames=10):
         if e.device_type == DeviceType.CUDA:
             us, n = per.get(e.name, (0.0, 0))
             per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    mode = "sgm-lr-check" if lr else "sgm"
+    return per, start.elapsed_time(end)
+
+
+def sgm_frame(left, right, maxd, lr, fused):
+    """One served SGM frame (``models.blockmatch.sgm_one``), or with
+    ``fused`` the same frame through ``sgm_disparity(epilogue="fused")``
+    (B5 in place of B4's summed form and the plain argmin / parabola)."""
+    from steroscopic_hardware_tpu_torch.models.blockmatch import (
+        _sgm_u8, sgm_one)
+    from steroscopic_hardware_tpu_torch.ops.sgm import sgm_disparity
+
+    if fused:
+        return _sgm_u8(sgm_disparity(left, right, max_disparity=maxd, P1=1.0,
+                                     P2=8.0, subpixel=True, epilogue="fused"),
+                       maxd)
+    return sgm_one(left, right, max_disparity=maxd, p1=1.0, p2=8.0,
+                   subpixel=True, lr=lr, threshold=1.0)
+
+
+def probe_profile(maxd, lr, fused=False, frames=10):
+    from steroscopic_hardware_tpu_torch.serve_probe import textured_pair
+
+    left, right = (torch.from_numpy(a).cuda()
+                   for a in textured_pair(SEED, H, W))
+
+    def frame():
+        sgm_frame(left, right, maxd, lr, fused)
+
+    per, wall = profile_frames(frame, frames)
+    mode = "sgm-fused" if fused else "sgm-lr-check" if lr else "sgm"
     rows = [{"profile": mode, "maxd": maxd, "kernel": name[:160],
              "ms_per_frame": us / 1e3 / frames, "launches_per_frame": n / frames}
             for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])]
     rows.append({"profile": mode, "maxd": maxd, "kernel": "all kernels",
                  "ms_per_frame": sum(us for us, _ in per.values()) / 1e3 / frames,
                  "launches_per_frame": sum(n for _, n in per.values()) / frames,
-                 "wall_ms_per_frame": start.elapsed_time(end) / frames,
+                 "wall_ms_per_frame": wall / frames,
                  "wall_ms_per_frame_unprofiled": time_ms(frame, reps=frames)})
+    return rows
+
+
+EPILOGUE_TIERS = (torch.uint8, torch.bfloat16, torch.float32)
+
+
+def _epilogue_volumes(maxd):
+    """Seeded uint8 agg_v (D, H, W) and agg_ht (D, W, H) at 1080p, values
+    0..119 as the uint8 tier's aggregates hold (the other tiers take the
+    same values)."""
+    rng = np.random.default_rng(SEED + 11)
+    D = maxd + 1
+    return (torch.from_numpy(
+                rng.integers(0, 120, (D, H, W), dtype=np.uint8)).cuda(),
+            torch.from_numpy(
+                rng.integers(0, 120, (D, W, H), dtype=np.uint8)).cuda())
+
+
+def kernel_ms(fn, match, reps=20):
+    """Device ms of one launch of the kernels whose name holds ``match``
+    (``torch.profiler``, ``reps`` calls of ``fn`` after 3 warm-ups)."""
+    per, _ = profile_frames(fn, reps)
+    us = [t for name, (t, _) in per.items() if match in name]
+    if not us:
+        raise RuntimeError(f"the profiler saw no kernel named *{match}*")
+    return sum(us) / 1e3 / reps
+
+
+def probe_epilogue(maxd, plans):
+    """B5 at 1080p per storage tier, subpixel: through the wrapper (CUDA
+    events around one call), the kernel alone (its device time under the
+    profiler) and, with ``plans``, under launch plans around the chosen
+    one, beside the byte bound."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rows = []
+    v8, ht8 = _epilogue_volumes(maxd)
+    for dt in EPILOGUE_TIERS:
+        agg_v, agg_ht = v8.to(dt), ht8.to(dt)
+        nbytes = 2 * agg_v.numel() * agg_v.element_size() + H * W * 4
+
+        def run():
+            return sgm.sgm_epilogue(agg_v, agg_ht, subpixel=True)
+
+        rows.append({"kernel": "sgm_epilogue", "tier": str(dt), "maxd": maxd,
+                     "ms": time_ms(run), "kernel_ms": kernel_ms(
+                         run, "sgm_epilogue"),
+                     "MB": nbytes / 1e6, "bound_ms": nbytes / MEM_BPS * 1e3})
+        if plans:
+            rows += _epilogue_plans(maxd, agg_v, agg_ht)
+            # the 240-column W-band of the 8-way sharded engine
+            rows += _epilogue_plans(maxd, agg_v[:, :, :240].contiguous(),
+                                    agg_ht[:, :240].contiguous())
+        del agg_v, agg_ht
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _epilogue_plans(maxd, agg_v, agg_ht):
+    """B5 on agg_v (D, h, w) under the chosen plan and, one field at a
+    time, each other ring depth the library compiled and each narrower
+    access width the shape allows, called through the library, each
+    checked against the wrapper's output."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    lib = _kernels.load()
+    D, H, W = agg_v.shape
+    want = sgm.sgm_epilogue(agg_v, agg_ht, subpixel=True)
+    dt = agg_v.dtype
+    s = agg_v.element_size()
+    chosen = _kernels.sgm_epilogue_plan(D, H, W, dt)
+    out = torch.empty_like(want)
+
+    def widths(pitch):
+        return [w for w in _kernels.TRANSPOSE_WIDTHS
+                if s <= w and pitch % w == 0]
+
+    plans = [chosen]
+    plans += [chosen._replace(stages=n) for n in _kernels.EPILOGUE_RINGS]
+    plans += [chosen._replace(wv=w) for w in widths(W * s)]
+    plans += [chosen._replace(wh=w) for w in widths(H * s)]
+    seen, rows = set(), []
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in plans:
+        if plan in seen:
+            continue
+        seen.add(plan)
+
+        def run(plan=plan):
+            err = lib.sgm_epilogue(
+                agg_v.data_ptr(), agg_ht.data_ptr(), out.data_ptr(), D, H, W,
+                _kernels._TYPE_CODES[dt], 1, *plan[:3], *plan.grid, stream)
+            if err:
+                raise RuntimeError(f"plan {plan} refused ({err})")
+
+        out.zero_()
+        run()
+        torch.cuda.synchronize()
+        rows.append({"kernel": "sgm_epilogue", "tier": str(dt), "maxd": maxd,
+                     "shape": [H, W], "plan": plan._asdict(),
+                     "chosen": plan == chosen,
+                     "equal": bool(torch.equal(out, want)),
+                     "kernel_ms": kernel_ms(run, "sgm_epilogue")})
     return rows
 
 
@@ -269,6 +408,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--transpose", action="store_true",
                     help="time B4 instead of B3")
+    ap.add_argument("--epilogue", action="store_true",
+                    help="time B5 instead of B3")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --profile, also profile the fused chain")
     ap.add_argument("--maxd", default="64",
                     help="comma-separated max disparities (default 64)")
     ap.add_argument("--out", default=None)
@@ -284,13 +427,17 @@ def main(argv=None) -> int:
     for maxd in (int(m) for m in args.maxd.split(",")):
         if args.transpose:
             found = probe_transpose(maxd, args.plans)
+        elif args.epilogue:
+            found = probe_epilogue(maxd, args.plans)
         else:
             found = probe_wrapper(maxd)
-        if args.plans and not args.transpose:
-            found += probe_plans(maxd)
+            if args.plans:
+                found += probe_plans(maxd)
         if args.profile:
             found += (probe_profile(maxd, lr=False)
                       + probe_profile(maxd, lr=True))
+            if args.fused:
+                found += probe_profile(maxd, lr=False, fused=True)
         for row in found:
             row["card"] = card
             print(json.dumps(row), flush=True)

@@ -451,6 +451,122 @@ def test_sgm_library_refuses_uncompiled_transpose_plans(cuda):
                            "sgm_transpose_add")
 
 
+EPILOGUE_TIERS = [u8, bf16, f32]
+
+
+def _check_epilogue(agg_v, agg_ht):
+    for subpixel in (False, True):
+        got = sgm.sgm_epilogue(agg_v, agg_ht, subpixel=subpixel)
+        want = sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=subpixel)
+        assert got.dtype == f32 and torch.equal(got, want), subpixel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", EPILOGUE_TIERS)
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (1, 37, 53), (2, 64, 64), (3, 65, 129), (7, 130, 66),
+    (288, 70, 45), (65, 1080, 960), (9, 1080, 480), (17, 1080, 240),
+    (5, 2, 700)])
+def test_sgm_epilogue_equals_plain(cuda, dtype, shape):
+    """B5 == plain exactly, integer and subpixel: ragged tile edges, D 1
+    and 288, and the W-bands of the sharded engine."""
+    D, H, W = shape
+    agg_v = _volume(10, (D, H, W), high=120).to(cuda).to(dtype)
+    agg_ht = _volume(11, (D, W, H), high=120).to(cuda).to(dtype)
+    _check_epilogue(agg_v, agg_ht)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", EPILOGUE_TIERS)
+@pytest.mark.parametrize("offset", [0, 8, 4, 2, 1])
+def test_sgm_epilogue_at_each_access_width(cuda, dtype, offset):
+    """agg_v and agg_ht at base pointers 16, 8, 4, 2 and 1 bytes aligned,
+    on rows whose pitch allows 16 bytes, so that the plan takes each width
+    the element size allows for both; and the 1080-byte uint8 rows of
+    agg_ht at 1080 rows (8-byte loads)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if offset % size:
+        pytest.skip("a torch tensor's base is a multiple of its element size")
+    D, H, W = 5, 80, 208
+    agg_v = _offset_volume(12, (D, H, W), dtype, offset, cuda)
+    agg_ht = _offset_volume(13, (D, W, H), dtype, offset, cuda)
+    plan = _kernels.sgm_epilogue_plan(D, H, W, dtype, offset or 16,
+                                      offset or 16)
+    assert plan.wv == plan.wh == max(size, offset or 16)
+    _check_epilogue(agg_v, agg_ht)
+    agg_v = _offset_volume(14, (3, 1080, 64), dtype, offset, cuda)
+    agg_ht = _offset_volume(15, (3, 64, 1080), dtype, offset, cuda)
+    _check_epilogue(agg_v, agg_ht)
+
+
+@pytest.mark.gpu
+def test_sgm_epilogue_every_ring_and_width(cuda):
+    """Every ring depth compiled for each type and every access width the
+    shape allows, through the library, equal to the wrapper's output."""
+    lib = _kernels.load()
+    D, H, W = 9, 72, 200
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for dt in EPILOGUE_TIERS:
+        s = torch.empty((), dtype=dt).element_size()
+        agg_v = _volume(16, (D, H, W), high=120).to(cuda).to(dt)
+        agg_ht = _volume(17, (D, W, H), high=120).to(cuda).to(dt)
+        want = sgm.sgm_epilogue_plain(agg_v, agg_ht, subpixel=True)
+        chosen = _kernels.sgm_epilogue_plan(D, H, W, dt)
+        ws = [w for w in (1, 2, 4, 8, 16) if w >= s]
+        plans = [chosen._replace(stages=n)
+                 for n in _kernels.EPILOGUE_RINGS]
+        plans += [chosen._replace(wv=w) for w in ws if (W * s) % w == 0]
+        plans += [chosen._replace(wh=w) for w in ws if (H * s) % w == 0]
+        for plan in plans:
+            out = torch.full((H, W), -1.0, device=cuda)
+            assert lib.sgm_epilogue(
+                agg_v.data_ptr(), agg_ht.data_ptr(), out.data_ptr(), D, H, W,
+                _kernels._TYPE_CODES[dt], 1, *plan[:3], *plan.grid,
+                stream) == 0, plan
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), plan
+
+
+@pytest.mark.gpu
+def test_sgm_library_refuses_other_epilogue_plans(cuda):
+    """The C entry point takes only plans within sgm_epilogue_plan's
+    rules: access widths that are powers of two from the element size to
+    16 bytes dividing pitch and pointer, a ring depth the library
+    compiled, the exact grid; the wrapper raises on a refusal."""
+    lib = _kernels.load()
+    D, H, W = 4, 72, 200
+    agg_v = _volume(0, (D, H, W)).to(cuda)
+    agg_ht = _volume(1, (D, W, H)).to(cuda)
+    out = torch.empty((H, W), dtype=f32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    plan = _kernels.sgm_epilogue_plan(D, H, W, u8)
+
+    def call(v, ht, plan, in_type=0, d=D):
+        return lib.sgm_epilogue(v.data_ptr(), ht.data_ptr(), out.data_ptr(),
+                                d, H, W, in_type, 1, *plan[:3], *plan.grid,
+                                stream)
+
+    assert call(agg_v, agg_ht, plan) == 0
+    for bad in (plan._replace(wv=32), plan._replace(wv=3),
+                plan._replace(wh=16),  # 72 bytes: 8 divides, 16 does not
+                plan._replace(wh=0), plan._replace(stages=5),
+                plan._replace(stages=1), plan._replace(stages=0),
+                plan._replace(grid=(plan.grid[0] + 1, plan.grid[1])),
+                plan._replace(grid=(plan.grid[0], plan.grid[1] - 1))):
+        assert call(agg_v, agg_ht, bad) != 0, bad
+    # bfloat16 takes no 1-byte access
+    v16, ht16 = agg_v.to(bf16), agg_ht.to(bf16)
+    assert call(v16, ht16, plan._replace(wv=2), 1) == 0
+    assert call(v16, ht16, plan._replace(wv=1), 1) != 0
+    # a width the pointer's alignment does not allow; D 0; a bad type
+    view = _offset_volume(2, (D, H, W), u8, 4, cuda)
+    assert call(view, agg_ht, plan) != 0
+    assert call(agg_v, agg_ht, plan, d=0) != 0
+    assert call(agg_v, agg_ht, plan, in_type=3) != 0
+    with pytest.raises(RuntimeError, match="sgm_epilogue launch failed"):
+        _kernels._raise_on(lib, call(view, agg_ht, plan), "sgm_epilogue")
+
+
 @pytest.mark.gpu
 def test_sgm_serve_path_launches_the_kernels(cuda):
     from steroscopic_hardware_tpu_torch.models.blockmatch import SGMMatcher

@@ -143,23 +143,22 @@ def test_transpose_add_plain_equals_pallas(in_dtype, with_b, out_dtype):
 
 # -- B5 -----------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("subpixel", [False, True])
-def test_sgm_epilogue_plain_equals_pallas(dtype, subpixel):
-    """The Pallas kernel needs 128-multiple planes: pad, run, crop. The
-    argmin is exact; the subpixel map within SUBPIXEL_TOL."""
-    D, H, W = 9, 37, 53
-    rng = np.random.default_rng(4)
-    agg_v = rng.integers(0, 120, (D, H, W), dtype=np.uint8)
-    agg_ht = rng.integers(0, 120, (D, W, H), dtype=np.uint8)
-    agg_v[:, :4, :4] = 7            # ties: the first minimum must win
-    agg_ht[:, :4, :4] = 7
+EPILOGUE_TYPES = [torch.uint8, torch.bfloat16, torch.float32]
+
+
+def _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel):
+    """The port's sgm_epilogue (the plain version on the CPU) against
+    ``_sgm_epilogue_pallas`` in interpret mode. The Pallas kernel needs
+    128-multiple planes: pad, run, crop. The argmin is exact; the subpixel
+    map within SUBPIXEL_TOL. Returns the port's map."""
+    D, H, W = agg_v.shape
     tv = torch.from_numpy(agg_v).to(dtype)
     tht = torch.from_numpy(agg_ht).to(dtype)
+    Hp, Wp = -(-H // 128) * 128, -(-W // 128) * 128
     jv = jnp.pad(jnp.asarray(tv.float().numpy()).astype(JNP[dtype]),
-                 ((0, 0), (0, 128 - H), (0, 128 - W)))
+                 ((0, 0), (0, Hp - H), (0, Wp - W)))
     jht = jnp.pad(jnp.asarray(tht.float().numpy()).astype(JNP[dtype]),
-                  ((0, 0), (0, 128 - W), (0, 128 - H)))
+                  ((0, 0), (0, Wp - W), (0, Hp - H)))
     want = np.asarray(jax_sgm._sgm_epilogue_pallas(
         jv, jht, D=D, subpixel=subpixel, interpret=True))[:H, :W]
     got = sgm.sgm_epilogue(tv, tht, subpixel=subpixel).numpy()
@@ -169,10 +168,92 @@ def test_sgm_epilogue_plain_equals_pallas(dtype, subpixel):
     else:
         assert np.array_equal(np.floor(got + 0.5), np.floor(want + 0.5))
         np.testing.assert_allclose(got, want, rtol=0, atol=SUBPIXEL_TOL)
+    return got
+
+
+@pytest.mark.parametrize("dtype", EPILOGUE_TYPES)
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_sgm_epilogue_plain_equals_pallas(dtype, subpixel):
+    D, H, W = 9, 37, 53
+    rng = np.random.default_rng(4)
+    agg_v = rng.integers(0, 120, (D, H, W), dtype=np.uint8)
+    agg_ht = rng.integers(0, 120, (D, W, H), dtype=np.uint8)
+    agg_v[:, :4, :4] = 7            # ties: the first minimum must win
+    agg_ht[:, :4, :4] = 7
+    _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
+    tv = torch.from_numpy(agg_v).to(dtype)
+    tht = torch.from_numpy(agg_ht).to(dtype)
     assert np.array_equal(
         sgm.argmin_first(tv.float() + tht.float().transpose(1, 2)).numpy(),
         np.asarray(jax_sgm._argmin_first(jnp.asarray(
             tv.float().numpy() + tht.float().numpy().transpose(0, 2, 1)))))
+
+
+@pytest.mark.parametrize("dtype", EPILOGUE_TYPES)
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_sgm_epilogue_few_planes_equals_pallas(dtype, D):
+    """D 1 (no parabola anywhere), 2 and 3 (only d = 1 takes it)."""
+    rng = np.random.default_rng(10 + D)
+    agg_v = rng.integers(0, 120, (D, 21, 30), dtype=np.uint8)
+    agg_ht = rng.integers(0, 120, (D, 30, 21), dtype=np.uint8)
+    for subpixel in (False, True):
+        _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
+
+
+@pytest.mark.parametrize("dtype", EPILOGUE_TYPES)
+def test_sgm_epilogue_forced_winners_equal_pallas(dtype):
+    """Winners forced at d = 0, 1, D - 2 and D - 1 in four bands of rows
+    (the parabola's edges, and c2 after a win at D - 1), with a second,
+    later minimum of the same cost in every other column (the first must
+    win) and uneven neighbours so that the parabola moves."""
+    D, H, W = 7, 24, 19
+    rng = np.random.default_rng(20)
+    agg_v = rng.integers(60, 120, (D, H, W), dtype=np.uint8)
+    agg_ht = rng.integers(60, 120, (D, W, H), dtype=np.uint8)
+    for band, d in enumerate((0, 1, D - 2, D - 1)):
+        rows = slice(6 * band, 6 * band + 6)
+        agg_v[d, rows, :] = 3
+        agg_ht[d, :, rows] = 2
+        if d + 1 < D:
+            agg_v[d + 1, rows, :] = 10
+        if d >= 1:
+            agg_v[d - 1, rows, :] = 30
+        if d + 3 < D:  # a later tie, every other column
+            agg_v[d + 3, rows, ::2] = 3
+            agg_ht[d + 3, ::2, rows] = 2
+    got = None
+    for subpixel in (False, True):
+        got = _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
+    assert np.array_equal(np.floor(got[::6, 0] + 0.5), [0, 1, D - 2, D - 1])
+
+
+@pytest.mark.parametrize("dtype", EPILOGUE_TYPES)
+def test_sgm_epilogue_whole_plane_ties_equal_pallas(dtype):
+    """Every plane the same cost everywhere: d = 0 wins every pixel; then
+    two equal minimum planes: the first wins, with its neighbours."""
+    D, H, W = 6, 17, 23
+    agg_v = np.full((D, H, W), 40, np.uint8)
+    agg_ht = np.full((D, W, H), 40, np.uint8)
+    for subpixel in (False, True):
+        got = _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
+        assert (got == 0).all()
+    agg_v[2] = agg_v[4] = 5
+    agg_v[1], agg_v[3] = 20, 30
+    for subpixel in (False, True):
+        got = _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
+        assert (np.floor(got + 0.5) == 2).all()
+
+
+@pytest.mark.parametrize("dtype", EPILOGUE_TYPES)
+def test_sgm_epilogue_narrow_w_band_equals_pallas(dtype):
+    """A W-band of a frame as the sharded engine hands one rank (tall and
+    narrow: agg_ht's rows far longer than agg_v's), at d16."""
+    D, H, W = 17, 120, 15
+    rng = np.random.default_rng(30)
+    agg_v = rng.integers(0, 120, (D, H, W), dtype=np.uint8)
+    agg_ht = rng.integers(0, 120, (D, W, H), dtype=np.uint8)
+    for subpixel in (False, True):
+        _epilogue_vs_pallas(agg_v, agg_ht, dtype, subpixel)
 
 
 # -- the chain ----------------------------------------------------------------

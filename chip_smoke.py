@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (written for an
 H100, sm_90a): builds the SAD and SGM kernels from
 ``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
-versions, and drives the live depth server in-process at 1920x1080 with
-both engines.
+versions, drives the live depth server in-process at 1920x1080 with both
+engines, and runs stereo visual odometry at KITTI's frame geometry.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -47,7 +47,20 @@ exit code:
      kernel's bound and, for B4, the one PyTorch call that computes the
      same function;
   5f. the device time of one 1080p d64 SGM frame through the fused chain
-     (B5) against the served, unfused one (torch.profiler).
+     (B5) against the served, unfused one (torch.profiler);
+  6v. stereo visual odometry at KITTI odometry's frame geometry (1241x376,
+     block 9, maxDisparity 128, 512 keypoints): B2s (sad_lr with costs and
+     the parabola) == plain exactly, with its time beside its bound; the
+     sgm front end's chain (B4 and B3 at its volumes, D 129) == plain
+     exactly, stage by stage and in both maps; one tracking step per front
+     end (sad, sgm) on the card against the same step on the CPU (same
+     previous features and RANSAC scores: keypoints exact, descriptor bits
+     >= 99.9%, points and twist within the CPU tests' tolerances); a
+     40-frame synthetic loop through StereoVO.process on the card (ATE,
+     tracking drops and median inliers within their bounds, sad_lr
+     launched once a frame, device ms per frame by stage under
+     torch.profiler); 10 frames with the sgm front end (the same gates and
+     profile); and despair.run_sad on the card == plain at 640x480 b7 d64.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -933,19 +946,304 @@ def phase_fused_frame(card, left, right, maxd=64, frames=10):
         f"({card})")
 
 
-def sad_bound(name, maxd=64):
-    """(bound_ms, bound_by) of one 1080p frame: two uint8 images in, the
-    uint8 map (sad_wta), two int32 maps (sad_lr) or five (sad_lr_costs)
-    out. The function's int32 operations per pixel and disparity: one cost
-    evaluation with sliding window sums, 6 (the vertical window's |a - b|
-    in and out and their add and subtract, the horizontal window's
-    difference, and the minimum of the packed key cost * 512 + d, counted
-    as one); sad_lr adds the right map's minimum over the shifted diagonal,
+# -- phase 6v: stereo visual odometry at KITTI odometry's frame geometry ------
+
+VO_FRAMES = 40       # the synthetic loop through StereoVO, frontend sad
+VO_SGM_FRAMES = 10   # the shorter run with frontend sgm
+VO_PROFILED = 10     # frames under torch.profiler (after the first)
+VO = dict(block_size=9, max_disparity=128, max_keypoints=512,
+          fast_threshold=20)  # examples/run_kitti_vo.py's settings
+# ATE bounds, m: about 3x the first chip run's (PERF.md section 6)
+VO_ATE_BOUND = 0.05      # the 40-frame loop, sad (first run 0.018)
+VO_SGM_ATE_BOUND = 0.15  # the 10-frame sgm run (first run 0.055)
+# Tracking gates, about 2x the first chip run's drops (sad 6 of 39, sgm 2
+# of 9). A frame drops where none of RANSAC's 32 minimal sets is all
+# inliers (tests/test_torch_vo_drops.py); at this field's inlier share
+# among the matches (0.37-0.59) that is expected of ~1 frame in 5. A
+# tracked frame finds the ground-truth motion's inliers, 48-93 a frame
+# (median 69), so the median over the frames stays above 50.
+VO_DROPS_BOUND = {"sad": 12, "sgm": 4}
+VO_INLIERS_MEDIAN_MIN = 50
+# the tolerances of tests/test_torch_features.py, test_torch_slam.py
+ORB_BIT_SHARE = 0.999
+XI_TOL = 1e-4
+STAGES = ("vo.disparity", "vo.features", "vo.triangulate", "vo.match",
+          "vo.pnp")
+
+
+def _check_track(got, want):
+    """One _track_step on the card against the same step on the CPU:
+    (descriptor bit share, max point error, max twist error)."""
+    xy, xy_sub, desc, valid, pts, ok, xi, n_inl = (
+        g.cpu().numpy() for g in got)
+    wxy, wsub, wdesc, wvalid, wpts, wok, wxi, wn = (
+        w.numpy() for w in want)
+    if not (np.array_equal(xy, wxy) and np.array_equal(valid, wvalid)):
+        fail("the track step's keypoints differ between card and CPU")
+    if np.abs(xy_sub - wsub).max() > 1e-6:
+        fail("the track step's subpixel keypoints differ beyond 1e-6 px")
+    share = float((desc == wdesc).mean())
+    if share < ORB_BIT_SHARE:
+        fail(f"descriptor bits equal in {share} < {ORB_BIT_SHARE}")
+    both = ok & wok
+    pts_err = float(np.abs(pts[both] - wpts[both]).max() /
+                    np.abs(wpts[both]).max())
+    if (ok != wok).sum() > 0 or pts_err > 1e-5:
+        fail(f"triangulation differs: {(ok != wok).sum()} validity flips, "
+             f"relative point error {pts_err}")
+    xi_err = float(np.abs(xi - wxi).max())
+    if int(n_inl) != int(wn) or xi_err > XI_TOL:
+        fail(f"PnP differs: inliers {int(n_inl)} / {int(wn)}, twist error "
+             f"{xi_err}")
+    return share, pts_err, xi_err, int(n_inl), int(valid.sum())
+
+
+def _check_sgm_chain(L, R, maxd):
+    """The sgm front end's chain (``ops.sgm.sgm_disparity_lr``) on the card
+    against the same chain of plain versions on the same pair, stage by
+    stage (B4 on the cost volume, B3 along both axes, B4 summing the
+    aggregates) and in both output maps. All exact: returns the largest
+    error of each kernel (0.0)."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+    from steroscopic_hardware_tpu_torch.ops.census import (
+        census_cost_volume_T,
+    )
+
+    P1, P2 = 1.0, 8.0  # sgm_disparity_lr's defaults: bfloat16 storage
+    bf16 = torch.bfloat16
+    cost_t = census_cost_volume_T(L, R, max_disparity=maxd)
+    cost_p = sgm.transpose_add_plain(cost_t, out_dtype=bf16)
+    v_p = sgm.aggregate_axis_plain(cost_p, P1, P2, axis=1, out_dtype=bf16)
+    ht_p = sgm.aggregate_axis_plain(cost_t, P1, P2, axis=1, out_dtype=bf16)
+    agg_p = sgm.transpose_add_plain(ht_p, v_p, out_dtype=bf16)
+    dL_p, dR_p = sgm.epilogue(agg_p, True), sgm.diagonal_argmin_right(agg_p)
+    stages = {}
+    cost = sgm.transpose_add(cost_t, out_dtype=bf16)
+    stages[f"B4 cost {tuple(cost_t.shape)}"] = _err(cost, cost_p)
+    v = sgm.aggregate_axis(cost, P1, P2, out_dtype=bf16)
+    stages[f"B3 {tuple(cost.shape)}"] = _err(v, v_p)
+    ht = sgm.aggregate_axis(cost_t, P1, P2, out_dtype=bf16)
+    stages[f"B3 {tuple(cost_t.shape)}"] = _err(ht, ht_p)
+    agg = sgm.transpose_add(ht, v, out_dtype=bf16)
+    stages[f"B4 summed {tuple(ht.shape)}"] = _err(agg, agg_p)
+    dL, dR = sgm.sgm_disparity_lr(L, R, max_disparity=maxd)
+    stages["dL"], stages["dR"] = _err(dL, dL_p), _err(dR, dR_p)
+    bad = {k: e for k, e in stages.items() if e != 0.0}
+    if bad:
+        fail(f"the sgm front end's chain differs from plain: {bad}")
+    return stages
+
+
+def profile_vo(vo, pairs):
+    """Device ms per frame by stage (the torch.profiler labels of
+    models/slam.py) and of all kernels, kernel launches per frame and the
+    wall ms per frame, over ``pairs`` after the first (unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vo.process(*pairs[0])
+    torch.cuda.synchronize()
+    n = len(pairs) - 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for left, right in pairs[1:]:
+            vo.process(left, right)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    # a stage's device time is that of the kernels that ran inside its
+    # label's span on the device timeline (the profiler's device-side
+    # event of the label); the kernels of csrc/ are launched outside any
+    # torch op, so the host-side label does not see them
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in STAGES:
+            spans.append((e.time_range.start, e.time_range.end, e.name))
+        else:
+            kernels.append(e)
+    if {name for _, _, name in spans} != set(STAGES):
+        fail(f"the profiler gave device spans for {sorted(spans)} only")
+    stages = dict.fromkeys(STAGES, 0.0)
+    total_us = 0.0
+    for k in kernels:
+        us = k.time_range.elapsed_us()
+        total_us += us
+        for start, end, name in spans:
+            if start <= k.time_range.start < end:
+                stages[name] += us
+                break
+    launches = len(kernels)
+    return ({k: us / 1e3 / n for k, us in stages.items()},
+            total_us / 1e3 / n, launches / n, wall)
+
+
+def _check_vo(frontend, vo, stats, ate_bound):
+    """The gates of a StereoVO run: finite trajectory, ATE, tracking drops
+    and median inliers within their bounds."""
+    if not np.isfinite(np.stack(vo.trajectory)).all():
+        fail(f"VO {frontend}: trajectory not finite")
+    if not (stats["ate"] <= ate_bound
+            and stats["tracking_drops"] <= VO_DROPS_BOUND[frontend]
+            and stats["inliers_median"] >= VO_INLIERS_MEDIAN_MIN):
+        fail(f"VO {frontend}: ATE (bound {ate_bound} m), tracking drops "
+             f"(bound {VO_DROPS_BOUND[frontend]}) or median inliers (at "
+             f"least {VO_INLIERS_MEDIAN_MIN}) out of bounds: {stats}")
+
+
+def _say_profile(frontend, cam, pairs, stats, card):
+    """Profile a fresh StereoVO of ``frontend`` over ``pairs`` and print its
+    device ms per frame by stage beside the unprofiled run's wall time."""
+    from steroscopic_hardware_tpu_torch.models import slam
+
+    stage, total, n_launch, wall = profile_vo(
+        slam.StereoVO(cam, device="cuda", seed=SEED, frontend=frontend,
+                      **VO), pairs)
+    if total <= 0.0 or min(stage.values()) <= 0.0:
+        fail(f"the profiler saw no kernel of a VO stage: {stage}")
+    say(f"phase 6v: {frontend}: device ms per frame by stage "
+        f"(torch.profiler, {len(pairs) - 1} frames): "
+        + ", ".join(f"{k[3:]} {stage[k]:.4f}" for k in STAGES)
+        + ", outside the stages (RANSAC draws, copies) "
+        f"{total - sum(stage.values()):.4f}; all kernels {total:.4f} ms in "
+        f"{n_launch:.1f} launches, "
+        f"profiled wall {wall:.4f} ms per frame; device busy "
+        f"{total / stats['frame_ms_median']:.4f} of the unprofiled wall "
+        f"({card})")
+
+
+def phase_vo(card):
+    """Phase 6v: B2s and the sgm front end's chain at KITTI geometry, one
+    track step per front end card against CPU, a 40-frame synthetic loop
+    through StereoVO.process on the card (sad), a shorter sgm run, and
+    despair.run_sad."""
+    from steroscopic_hardware_tpu_torch import _kernels, despair
+    from steroscopic_hardware_tpu_torch.models import slam
+    from steroscopic_hardware_tpu_torch.models.vo import gumbel_scores
+    from steroscopic_hardware_tpu_torch.ops import sad
+    from steroscopic_hardware_tpu_torch.vo import run, synthetic_sequence
+
+    t0 = time.perf_counter()
+    cam, pairs, gt = synthetic_sequence(VO_FRAMES, trajectory="loop",
+                                        seed=SEED)
+    render_s = time.perf_counter() - t0
+    h, w = pairs[0][0].shape
+    b, d = VO["block_size"], VO["max_disparity"]
+    kw = dict(block_size=b, max_disparity=d)
+
+    # 1. B2s: sad_lr with costs and the parabola, card against plain
+    L, R = to_cuda(*pairs[0])
+    got = sad.disparity_lr(L, R, with_costs=True, **kw)
+    want = sad.disparity_raw_lr_plain(L, R, with_costs=True, **kw)
+    err = max(_err(g, x) for g, x in zip(got, want))
+    sub = sad.disparity_subpixel(L, R, **kw)
+    sub_plain = sad.disparity_subpixel_plain(L, R, **kw)
+    err = max(err, _err(sub[0], sub_plain[0]), _err(sub[1], sub_plain[1]))
+    if err != 0.0:
+        fail(f"B2s at {h}x{w} b{b} d{d}: max abs error {err}")
+    ms = _time_ms(lambda: sad.disparity_lr(L, R, with_costs=True, **kw))
+    plain_ms = _time_ms(lambda: sad.disparity_raw_lr_plain(
+        L, R, with_costs=True, **kw), warmup=1, reps=5)
+    sub_ms = _time_ms(lambda: sad.disparity_subpixel(L, R, **kw))
+    bound_ms, bound_by = sad_bound("sad_lr_costs", d, h * w)
+    say(f"phase 6v: B2s {w}x{h} b{b} d{d}: kernel == plain (5 maps and the "
+        f"subpixel map, max abs error 0); sad_lr with costs {ms:.4f} ms, "
+        f"with the parabola {sub_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) ({card})")
+    b2s = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    del L, R, got, want, sub, sub_plain
+
+    # 2. the sgm front end's kernels at its shapes (D 129 over 376 x 1241)
+    stages = _check_sgm_chain(*to_cuda(*pairs[0]), d)
+    say(f"phase 6v: sgm front end {w}x{h} d{d}, card == plain (max abs "
+        f"error): " + ", ".join(f"{k} {e}" for k, e in stages.items()))
+    _free()
+
+    # 3. one _track_step per front end on the card against the same step on
+    # the CPU, with the same previous features and RANSAC scores
+    cpu = [torch.from_numpy(a) for a in (*pairs[0], *pairs[1])]
+    scores = gumbel_scores(slam.N_HYPOTHESES, VO["max_keypoints"],
+                           torch.Generator().manual_seed(SEED), "cpu")
+    for frontend in ("sad", "sgm"):
+        static = dict(VO, intr=cam.intr, baseline=cam.baseline,
+                      frontend=frontend)
+        prev = slam._frame_frontend(cpu[0], cpu[1], **static)
+        want = slam._track_step(cpu[2], cpu[3], *prev[2:], scores, **static)
+        got = slam._track_step(*to_cuda(*pairs[1]),
+                               *(t.cuda() for t in prev[2:]), scores.cuda(),
+                               **static)
+        share, pts_err, xi_err, n_inl, n_valid = _check_track(got, want)
+        say(f"phase 6v: one track step ({frontend}), card == CPU: keypoints "
+            f"exact ({n_valid} of {VO['max_keypoints']} slots valid), "
+            f"descriptor bits equal {share:.6f}, relative point error "
+            f"{pts_err:.3g}, twist error {xi_err:.3g}, inliers {n_inl} on "
+            f"both")
+
+    # 4. the main path: the loop through StereoVO.process on the card
+    vo = slam.StereoVO(cam, device="cuda", seed=SEED, **VO)
+    _kernels.reset_launches()
+    stats = run(vo, pairs, gt)
+    launches = dict(_kernels.launches)
+    if launches["sad_lr"] != VO_FRAMES:
+        fail(f"sad_lr launched {launches['sad_lr']} times in "
+             f"{VO_FRAMES} VO frames")
+    _check_vo("sad", vo, stats, VO_ATE_BOUND)
+    say(f"phase 6v: {VO_FRAMES}-frame synthetic loop {w}x{h} "
+        f"({render_s:.1f} s to render), StereoVO sad on the card: ATE "
+        f"{stats['ate']:.6f} m (bound {VO_ATE_BOUND}), inliers min "
+        f"{stats['inliers_min']} median {stats['inliers_median']}, tracking "
+        f"drops {stats['tracking_drops']}, valid keypoint slots median "
+        f"{stats['valid_keypoints_median']:.4f} min "
+        f"{stats['valid_keypoints_min']:.4f}, wall ms per frame median "
+        f"{stats['frame_ms_median']:.4f} (first {stats['first_frame_ms']:.1f})"
+        f", launches {launches} ({card})")
+    _say_profile("sad", cam, pairs[:VO_PROFILED + 1], stats, card)
+
+    # 5. a shorter run through the SGM front end (B3, B4)
+    vo = slam.StereoVO(cam, device="cuda", seed=SEED, frontend="sgm", **VO)
+    _kernels.reset_launches()
+    sgm = run(vo, pairs[:VO_SGM_FRAMES], gt)
+    sgm_launches = dict(_kernels.launches)
+    if sgm_launches["sgm_aggregate"] != 2 * VO_SGM_FRAMES:
+        fail(f"VO sgm: {sgm}, launches {sgm_launches}")
+    _check_vo("sgm", vo, sgm, VO_SGM_ATE_BOUND)
+    say(f"phase 6v: {VO_SGM_FRAMES} frames StereoVO sgm on the card: ATE "
+        f"{sgm['ate']:.6f} m (bound {VO_SGM_ATE_BOUND}), inliers min "
+        f"{sgm['inliers_min']} median {sgm['inliers_median']}, tracking "
+        f"drops {sgm['tracking_drops']}, wall ms per "
+        f"frame median {sgm['frame_ms_median']:.4f}, launches "
+        f"{sgm_launches} ({card})")
+    _say_profile("sgm", cam, pairs[:VO_SGM_FRAMES], sgm, card)
+
+    # 6. the despair facade on the card, b7 d64 at 640x480
+    rng = np.random.default_rng(SEED + 6)
+    left, right = random_pair(rng, (480, 640))
+    _kernels.reset_launches()
+    out = despair.run_sad(left, right, 7, 64)
+    Lc, Rc = to_cuda(left, right)
+    want = sad.disparity_plain(Lc, Rc, block_size=7,
+                               max_disparity=64).cpu().numpy()
+    if _kernels.launches["sad_wta"] != 1 or not np.array_equal(out, want):
+        fail("despair.run_sad on the card != the plain map")
+    say("phase 6v ok: despair.run_sad 640x480 b7 d64 on the card == plain")
+    _free()
+    return b2s, launches["sad_lr"]
+
+
+def sad_bound(name, maxd=64, px=H * W):
+    """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
+    given): two uint8 images in, the uint8 map (sad_wta), two int32 maps
+    (sad_lr) or five (sad_lr_costs) out. The function's int32 operations
+    per pixel and disparity: one cost evaluation with sliding window sums,
+    6 (the vertical window's |a - b| in and out and their add and
+    subtract, the horizontal window's difference, and the minimum of the
+    packed key cost * 512 + d, counted as one); sad_lr adds the right map's minimum over the shifted diagonal,
     2; with costs the neighbour tracking adds 4 (the d - 1 test and the
     selects of c_left, c_right and the previous cost). So 6, 8 and 12.
     Counted once per pixel and d: the kernel's extra work (halo columns,
     window rows rebuilt per tile) is not the function's."""
-    px = H * W
     if name == "sad_wta":
         return _bound(3 * px, 6 * px * (maxd + 1), I32_OPS)
     maps, ops = (5, 12) if name == "sad_lr_costs" else (2, 8)
@@ -970,6 +1268,7 @@ def main() -> int:
     times = phase_times(card)
     sgm_times = phase_sgm_times(card)
     phase_fused_frame(card, left, right)
+    b2s, b2s_launches = phase_vo(card)
     kernels = []
     for name in ("sad_wta", "sad_lr"):
         ms, plain_ms = times[(name, 16, 64)]
@@ -980,6 +1279,11 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    # B2s: sad_lr with costs, launched on the VO path (phase 6v)
+    kernels.append({
+        "name": "sad_lr_costs", "route": "cuda", "source": SOURCE["sad_lr"],
+        "replaces": "steroscopic_hardware_tpu/ops/sad_pallas.py:622",
+        "launches": b2s_launches, **b2s, "library_ms": None})
     # the row of each SGM kernel: its stage on the served (unfused) chain,
     # and the fused epilogue for sgm_epilogue
     rows = {"sgm_aggregate": "vertical bf16->bf16",

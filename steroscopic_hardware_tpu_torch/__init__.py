@@ -1,18 +1,25 @@
-"""steroscopic_hardware_tpu_torch — the stereo depth server in PyTorch + CUDA.
+"""steroscopic_hardware_tpu_torch — the stereo depth server and visual
+odometry in PyTorch + CUDA.
 
 The port of ``steroscopic_hardware_tpu`` (JAX on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``). The JAX package
 stays beside it as the reference the port is held to; this package imports
 ``torch`` and never ``jax``. Layout mirrors the JAX package:
 
-- ``ops``      — SAD and census/SGM disparity (plain torch versions + CUDA
-                 kernel wrappers), left-right check, grayscale, colorization.
+- ``ops``      — SAD (with subpixel) and census/SGM disparity (plain torch
+                 versions + CUDA kernel wrappers), left-right check,
+                 grayscale, colorization, SE(3), FAST / ORB features,
+                 Hamming matching, the numpy SAD golden model.
 - ``models``   — ``BlockMatcher`` and ``SGMMatcher``, which own an explicit
-                 ``torch.device``.
+                 ``torch.device``, the ``sweep`` runner; ``vo``
+                 (triangulation, GN PnP, RANSAC) and ``slam`` (``StereoVO``).
 - ``runtime``  — ``DepthPipeline``, HTTP server, frame bus, camera manager,
                  sources, logger, wire protocol, emitter.
-- ``io``       — the PNG and LZMA codecs.
-- ``utils``    — parameters and their validation.
+- ``io``       — the PNG, PGM and LZMA codecs, the KITTI odometry loader.
+- ``utils``    — parameters and their validation, the synthetic scene.
+- ``despair``  — the reference-parity one-call API (``run_sad`` ...).
+- ``vo``       — ``python -m steroscopic_hardware_tpu_torch.vo``: StereoVO
+                 over a synthetic or KITTI sequence, one JSON line.
 - ``csrc``     — the CUDA C++ kernels, built at first use by ``_kernels``.
 - ``serve_probe`` — serving fps / latency / device busy share per mode.
 

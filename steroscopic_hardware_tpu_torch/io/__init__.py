@@ -1,2 +1,2 @@
-"""Image I/O (counterpart of ``steroscopic_hardware_tpu.io``): the PNG and
-LZMA codecs."""
+"""Image I/O (counterpart of ``steroscopic_hardware_tpu.io``): the PNG, PGM
+and LZMA codecs and the KITTI odometry loader."""

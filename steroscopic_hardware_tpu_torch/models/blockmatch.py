@@ -384,3 +384,15 @@ class SGMMatcher(_Engine):
                                  preview_scale=preview_scale,
                                  fetch_all=fetch_all,
                                  colorize_dev=colorize_dev))
+
+
+def sweep(left, right, block_sizes=VALID_BLOCK_SIZES,
+          max_disparities=VALID_MAX_DISPARITIES, device="cuda"):
+    """Parameter-sweep runner (BASELINE config #2, the JAX ``sweep``):
+    yields ``(Parameters, disparity_map)`` over the block size x maximum
+    disparity grid, through one :class:`BlockMatcher` on ``device``."""
+    m = BlockMatcher(device=device)
+    for b in block_sizes:
+        for d in max_disparities:
+            m.set_params(Parameters(b, d))
+            yield m.get_params(), m.compute(left, right)

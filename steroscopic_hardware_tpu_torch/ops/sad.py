@@ -14,6 +14,11 @@ invalid (a pixel with none gets 0); the uint8 map is ``d * 255 // maxD``.
 * ``disparity``, ``disparity_batch``, ``disparity_lr``: the wrappers. A CPU
   tensor goes to the plain version; a CUDA tensor launches the kernel of
   ``csrc/sad.cu`` (``_kernels.sad_wta`` / ``_kernels.sad_lr``) or raises.
+* ``parabola_refine``, ``disparity_subpixel`` / ``disparity_subpixel_plain``:
+  the subpixel left map and raw right map of one sweep with costs
+  (``disparity_pallas_subpixel`` / ``disparity_subpixel_lr_xla``), the
+  parabola being plain torch on either device, as the JAX package runs it
+  outside its kernel.
 """
 
 from __future__ import annotations
@@ -168,3 +173,41 @@ def disparity_lr(left, right, *, block_size: int, max_disparity: int,
         return tuple(o[0] for o in outs)
     return _kernels.sad_lr(left, right, block_size, max_disparity,
                            with_costs)
+
+
+def parabola_refine(c_left, c_best, c_right, best_d) -> torch.Tensor:
+    """Equiangular parabola subpixel refinement around an integer argmin
+    (``sad_xla.parabola_refine``); the integer position where a neighbour
+    cost is invalid (BIG). float32 in pixels."""
+    c0 = c_left.to(torch.float32)
+    c1 = c_best.to(torch.float32)
+    c2 = c_right.to(torch.float32)
+    denom = c0 - 2 * c1 + c2
+    delta = torch.where(
+        denom.abs() > 1e-6,
+        (0.5 * (c0 - c2) / torch.where(denom == 0, 1.0, denom)).clamp(
+            -0.5, 0.5),
+        0.0)
+    usable = (c_left < BIG) & (c_right < BIG) & (c_best < BIG)
+    bd = best_d.to(torch.float32)
+    return torch.where(usable, bd + delta, bd)
+
+
+def disparity_subpixel_plain(left, right, *, block_size: int,
+                             max_disparity: int):
+    """(dL float32 subpixel, dR int32) from the plain sweep with costs."""
+    dL, dR, c0, c1, c2 = disparity_raw_lr_plain(
+        left, right, block_size=block_size, max_disparity=max_disparity,
+        with_costs=True)
+    return parabola_refine(c0, c1, c2, dL), dR
+
+
+def disparity_subpixel(left, right, *, block_size: int, max_disparity: int):
+    """Subpixel left disparity and raw right disparity of (H, W) or
+    (F, H, W) pairs (``disparity_pallas_subpixel`` counterpart): one
+    ``disparity_lr`` sweep with costs (``_kernels.sad_lr`` on a CUDA
+    tensor), then the parabola. Returns (dL float32, dR int32)."""
+    dL, dR, c0, c1, c2 = disparity_lr(
+        left, right, block_size=block_size, max_disparity=max_disparity,
+        with_costs=True)
+    return parabola_refine(c0, c1, c2, dL), dR

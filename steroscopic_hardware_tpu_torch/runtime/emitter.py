@@ -80,10 +80,13 @@ class SerialEmitter:
         import time
 
         try:
-            # blocking wait for the start request
+            # blocking scan for the start request: slide a 2-byte window
+            # over the line until it reads START_SEQ, so leading noise
+            # bytes are skipped as the firmware skips them (the JAX
+            # package's copy gives up after the first two bytes)
             start = b""
-            while not self._closed.is_set() and len(start) < 2:
-                chunk = os.read(self.fd, 2 - len(start))
+            while not self._closed.is_set():
+                chunk = os.read(self.fd, 1)
                 if not chunk:
                     return
                 start = (start + chunk)[-2:]

@@ -1,1 +1,1 @@
-"""Utilities: parameter validation."""
+"""Utilities: parameter validation, the synthetic stereo scene."""

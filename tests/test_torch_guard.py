@@ -45,6 +45,10 @@ stacked = torch.from_numpy(np.stack([np.stack((left, right))]))
 packed = sgm_serve_step(stacked, max_disparity=16, p1=1.0, p2=8.0,
                         subpixel=True)
 assert packed.shape == (4, 16, 40), packed.shape
+from steroscopic_hardware_tpu_torch.vo import main as vo_main
+assert vo_main(["--synthetic", "--device", "cpu", "--size", "96", "160",
+                "--frames", "2", "--max-disparity", "16", "--block", "5",
+                "--trajectory", "straight"]) == 0
 for backend in ("auto", "sgm"):
     app = build_app(["--device", "cpu", "--port", "0", "--no-open",
                      "--backend", backend]).start()
@@ -61,9 +65,9 @@ print("foreign modules:", sorted(
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, a CPU SAD and SGM serve step and the
-    server with both backends load neither jax nor any module of the JAX
-    package."""
+    """Every module of the port, a CPU SAD and SGM serve step, a two-frame
+    CPU visual odometry run and the server with both backends load neither
+    jax nor any module of the JAX package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
@@ -96,6 +100,24 @@ def test_main_device_cuda_raises_without_a_gpu():
     # and cuda is the default device
     with pytest.raises(RuntimeError, match="cuda"):
         build_app(["--port", "0", "--no-open"])
+
+
+def test_stereo_vo_cuda_raises_without_a_gpu():
+    _no_cuda()
+    from steroscopic_hardware_tpu_torch.models.slam import (
+        StereoCamera,
+        StereoVO,
+    )
+    from steroscopic_hardware_tpu_torch.vo import main as vo_main
+
+    cam = StereoCamera(fx=240.0, fy=240.0, cx=160.0, cy=120.0, baseline=0.4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        StereoVO(cam, device="cuda")
+    # and cuda is the default device, of the class and of the entry point
+    with pytest.raises(RuntimeError, match="cuda"):
+        StereoVO(cam)
+    with pytest.raises(RuntimeError, match="cuda"):
+        vo_main(["--synthetic", "--frames", "2", "--size", "64", "96"])
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):
@@ -252,6 +274,50 @@ def test_serve_path_launches_the_kernels(cuda):
     want = sad.disparity_plain(L, R, block_size=16, max_disparity=64)
     assert np.array_equal(got, want.numpy())
     assert got_lr.shape == got.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,block,maxd", [
+    (40, 64, 7, 16), (33, 80, 5, 32), (24, 50, 9, 48), (17, 45, 3, 48),
+    (376, 1241, 9, 128),  # KITTI odometry's frame, the VO path's shape
+])
+def test_disparity_subpixel_equals_plain(cuda, h, w, block, maxd):
+    """B2s: sad_lr with costs and the parabola on the card equal the plain
+    sweep and parabola on the same device, exactly."""
+    L, R = _pair(h, (h, w))
+    L, R = L.to(cuda), R.to(cuda)
+    kw = dict(block_size=block, max_disparity=maxd)
+    _kernels.reset_launches()
+    got = sad.disparity_subpixel(L, R, **kw)
+    assert _kernels.launches["sad_lr"] == 1
+    want = sad.disparity_subpixel_plain(L, R, **kw)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_stereo_vo_launches_sad_lr_once_a_frame(cuda):
+    """StereoVO on the card runs every frame's disparity through sad_lr
+    and tracks a synthetic sequence as the CPU run does (the two draw
+    their RANSAC scores from different generators)."""
+    from steroscopic_hardware_tpu_torch.models.slam import StereoVO, ate_rmse
+    from steroscopic_hardware_tpu_torch.vo import synthetic_sequence
+
+    cam, pairs, gt = synthetic_sequence(4, trajectory="straight",
+                                        size=(120, 400))
+    kw = dict(block_size=7, max_disparity=48, max_keypoints=128,
+              fast_threshold=15)
+    vo = StereoVO(cam, device=cuda, **kw)
+    _kernels.reset_launches()
+    for left, right in pairs:
+        vo.process(left, right)
+    assert _kernels.launches["sad_lr"] == len(pairs)
+    cpu = StereoVO(cam, device="cpu", **kw)
+    for left, right in pairs:
+        cpu.process(left, right)
+    assert min(vo.n_inliers[1:]) >= 15 and vo.tracking_drops == 0
+    assert np.abs(vo.positions() - cpu.positions()).max() < 2e-3
+    assert ate_rmse(vo.positions(), gt) < 0.02
 
 
 @pytest.mark.gpu

@@ -2,7 +2,8 @@
 H100, sm_90a): builds the SAD and SGM kernels from
 ``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
 versions, drives the live depth server in-process at 1920x1080 with both
-engines, and runs stereo visual odometry at KITTI's frame geometry.
+engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
+and serves live SLAM.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -41,8 +42,8 @@ exit code:
      through the kernels;
   4s. the same with ``--backend sgm``, with and without ``--lr-check``,
      each before and after a retune to maxDisparity 128;
-  5. kernel and plain times at 1080p (CUDA events, median of 20 after 3
-     warm-ups), SAD (sad_lr also with costs; b16 d64, b7 d128, b31 d256) and
+  5. kernel and plain times at 1080p (CUDA events; kernels the median of
+     20 after 3 warm-ups, plain versions of 5 after 1), SAD (sad_lr also with costs; b16 d64, b7 d128, b31 d256) and
      each SGM stage (sgm_epilogue in all three tiers), beside each
      kernel's bound and, for B4, the one PyTorch call that computes the
      same function;
@@ -60,7 +61,32 @@ exit code:
      tracking drops and median inliers within their bounds, sad_lr
      launched once a frame, device ms per frame by stage under
      torch.profiler); 10 frames with the sgm front end (the same gates and
-     profile); and despair.run_sad on the card == plain at 640x480 b7 d64.
+     profile); and despair.run_sad on the card == plain at 640x480 b7 d64;
+  7. the SLAM backend and live SLAM serving: StereoSLAM with BoW loop
+     closure (window 4, a keyframe every 2 frames, BA 6 iterations) over
+     phase 6v's 40 frames on the card, synchronously (ATE beside phase
+     6v's VO-only ATE, BA runs, loops closed, keyframes, stage seconds,
+     frame wall ms; gates: a BA run, a closure, no backend error, ATE
+     below the VO-only ATE, the newest BA window's error curve and the
+     newest closure's pose-graph cost falling, sad_lr once a frame) with
+     a checkpoint after 21 frames; the
+     backend's operations card against CPU on the same inputs (the
+     batched matches and BowIndex.vector exactly at K 512, the BA solve
+     of the run's last window and a 64-node pose graph with loop edges,
+     with and without n_fixed, within tolerances); the same frames with
+     the asynchronous backend (the same gates after finish(), its ATE
+     under a fixed bound); the checkpoint loaded on the card (frame index,
+     keyframes and edges as the uninterrupted run's) and the rest of the
+     frames (the sync run's gates; camera centres within 1 mm of the
+     uninterrupted run's),
+     then one BA window, one loop check and one pose-graph solve on its
+     final state under torch.profiler (device ms and launches, beside the
+     sync run's wall ms per stage); and the live server with --slam --loop-closure at 1080p,
+     fused and --no-slam-fused, 7 s each once the backend warmup is
+     done (/stream/out == plain, /slam
+     and /slam/trajectory served, no error or dropped track, sad_lr once
+     per tracked frame; served fps, serve latency, device busy, SLAM
+     frames per second, backend queue).
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -456,6 +482,12 @@ def phase_serve(left, right):
     return launches
 
 
+# the plain versions take 25-550 ms a call at 1080p: 1 warm-up and the
+# median of 5 (the kernels: 3 and 20), to keep the script well inside its
+# time limit
+PLAIN_REPS = dict(warmup=1, reps=5)
+
+
 def _time_ms(fn, warmup=3, reps=20):
     for _ in range(warmup):
         fn()
@@ -489,7 +521,7 @@ def phase_times(card):
             kw["with_costs"] = name == "sad_lr_costs"
             kernel = lambda: sad.disparity_lr(L, R, **kw)  # noqa: E731
             plain = lambda: sad.disparity_raw_lr_plain(L, R, **kw)  # noqa: E731
-        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain, **PLAIN_REPS)
         out[(name, b, d)] = (ms, plain_ms)
         bound_ms, bound_by = sad_bound(name, d)
         say(f"phase 5: {name} 1080p b{b} d{d}: kernel {ms:.4f} ms, plain "
@@ -901,7 +933,7 @@ def phase_sgm_times(card, maxd=64):
             V * 2 * v.element_size() + H * W * size[f32], 3 * V, None))
     out = []
     for name, what, kernel, plain, nbytes, ops, library in stages:
-        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain, **PLAIN_REPS)
         library_ms = _time_ms(library) if library is not None else None
         bound_ms, bound_by = _bound(nbytes, ops, F32_OPS)
         out.append({"name": name, "stage": what, "ms": ms,
@@ -1229,7 +1261,355 @@ def phase_vo(card):
         fail("despair.run_sad on the card != the plain map")
     say("phase 6v ok: despair.run_sad 640x480 b7 d64 on the card == plain")
     _free()
-    return b2s, launches["sad_lr"]
+    return b2s, launches["sad_lr"], (cam, pairs, gt, stats)
+
+
+# -- phase 7: the SLAM backend and live SLAM serving ---------------------------
+
+SLAM = dict(VO, window=4, kf_every=2, ba_iters=6, loop_closure=True)
+# frames before the checkpoint of the sync run: a checkpoint holds only the
+# keyframes' features and a resumed engine tracks its first frame against
+# the newest keyframe, so the save follows a keyframe (frame 20), and the
+# resumed run tracks frame 21 against frame 20 as the uninterrupted one does
+SLAM_SAVE_AT = 21
+# ATE gates of the SLAM runs: the sync run and the resumed one (which
+# repeats it) must beat phase 6v's VO-only ATE on the same frames (first
+# chip runs: 0.010184 against 0.018058); the async run, whose BA windows
+# coalesce as the backend lags, keeps the VO runs' bound, m
+SLAM_ATE_BOUND = 0.05  # first chip runs: async 0.015847
+# the resumed run's camera centres against the uninterrupted run's, m: it
+# draws as that run does and the card repeats a run bit for bit (0 m
+# measured); resumed without the fallback motion they moved 0.052 m
+SLAM_RESUME_TOL = 1e-3
+# card against CPU on the same inputs, each limit between the spread of
+# sound readings and a lower-precision control (slam_probe.py, NVIDIA
+# H100, PERF.md section 6): BA over the 19 windows of a 40-frame run,
+# twists 1.5e-7..4.7e-6 (observations rounded to float16: 2.2e-4..8.8e-4)
+# and error curves 5.9e-6..1.3e-4 relative (0.19..2.1); the 64-node pose
+# graph over 16 seeds x 2 horizons, twists 4.3e-6..1.2e-4 (measurements
+# rounded to bfloat16: 9.9e-3..3.7e-2) and the final cost 0..2.9e-7 of the
+# initial one (2.3e-5..3.9e-4). Its middle iterations' costs are not
+# compared: on one graph one of them differed by 4.3% of the initial cost
+# on the card and in the control alike, the twists within 1e-4.
+BA_XI_TOL = 3e-5
+BA_ERR_RTOL = 1e-3
+PG_XI_TOL = 1e-3
+PG_FINAL_COST_TOL = 3e-6
+SLAM_STAGES = ("slam.ba", "slam.loop", "slam.graph")
+SERVE_SLAM_SECONDS = 7.0
+
+
+def _descriptor_sets(rng, B, K):
+    """One (K, 256) set and B noisy permuted copies, with duplicated rows
+    and invalid slots (tests/test_torch_bow.py's construction)."""
+    a = rng.integers(0, 2, (K, 256), dtype=np.uint8)
+    a[K // 2: K // 2 + 4] = a[0]
+    bs = np.stack([a[rng.permutation(K)]
+                   ^ (rng.random((K, 256)) < 0.1).astype(np.uint8)
+                   for _ in range(B)])
+    return a, bs, rng.random(K) < 0.9, rng.random((B, K)) < 0.9
+
+
+def check_backend_ops(card, cam, window, K=512):
+    """Phase 7.1: the backend's operations on the card against the CPU on
+    the same inputs: the batched matches and BowIndex.vector exactly, the
+    BA window solve of ``window`` (real keyframes of the sync run) and a
+    64-node pose graph, with and without n_fixed, within tolerances."""
+    from steroscopic_hardware_tpu_torch.models import slam
+    from steroscopic_hardware_tpu_torch.ops import bow, matching
+    from steroscopic_hardware_tpu_torch.slam_probe import loop_graph
+
+    rng = np.random.default_rng(SEED + 7)
+    t = torch.from_numpy
+    dev = "cuda"
+    errs = {}
+    a, bs, va, vbs = _descriptor_sets(rng, 4, K)
+    kw = dict(ratio=0.85, max_distance=60.0)
+    for name, fn, args in (
+            ("match_batch", matching.match_batch, (bs, a, vbs, va)),
+            ("match_one_to_many", matching.match_one_to_many,
+             (a, bs, va, vbs))):
+        want = fn(*(t(x) for x in args), **kw)
+        got = fn(*(t(x).to(dev) for x in args), **kw)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"{name} at K {K}: card != CPU")
+        errs[name] = 0.0
+    vec_cpu = bow.BowIndex().vector(a, va)
+    vec_dev = bow.BowIndex(device=dev).vector(a, va)
+    if not np.array_equal(vec_cpu, vec_dev):
+        fail(f"BowIndex.vector: card != CPU, max abs error "
+             f"{np.abs(vec_cpu - vec_dev).max()}")
+    errs["bow_vector"] = 0.0
+    # the BA window of real keyframes, solved by a card and a CPU engine
+    xi0 = np.stack([kf.xi_world for kf in window]).astype(np.float32)
+    solved = {}
+    for d in (dev, "cpu"):
+        engine = slam.StereoSLAM(cam, device=d, seed=SEED, **SLAM)
+        solved[d] = (engine._solve_window(window, xi0), engine.last_ba_errs)
+    xi_err = float(np.abs(solved[dev][0] - solved["cpu"][0]).max())
+    err_rel = float(np.max(np.abs(solved[dev][1] - solved["cpu"][1])
+                           / np.abs(solved["cpu"][1])))
+    if xi_err > BA_XI_TOL or err_rel > BA_ERR_RTOL:
+        fail(f"ba_solve window of {len(window)} at K {K}: card vs CPU twist "
+             f"error {xi_err} (tolerance {BA_XI_TOL}), error curve "
+             f"{err_rel} relative (tolerance {BA_ERR_RTOL})")
+    errs["ba_solve"] = xi_err
+    graph = loop_graph(rng)
+    for n_fixed in (None, 16):
+        outs = {}
+        for d in (dev, "cpu"):
+            xi, costs = slam.pose_graph_optimize(
+                *(t(x).to(d) for x in graph), iters=10, n_fixed=n_fixed)
+            outs[d] = (xi.cpu().numpy(), costs.cpu().numpy())
+        pg_err = float(np.abs(outs[dev][0] - outs["cpu"][0]).max())
+        costs, costs_cpu = outs[dev][1], outs["cpu"][1]
+        cost_rel = float(abs(costs[-1] - costs_cpu[-1]) / costs_cpu[0])
+        frozen = n_fixed or 1
+        if (pg_err > PG_XI_TOL or cost_rel > PG_FINAL_COST_TOL
+                or not np.array_equal(outs[dev][0][:frozen],
+                                      graph[0][:frozen])
+                or not costs[-1] < costs[0]):
+            fail(f"pose_graph_optimize (n_fixed {n_fixed}): card vs CPU "
+                 f"twist error {pg_err} (tolerance {PG_XI_TOL}), final "
+                 f"cost {cost_rel} of the initial (tolerance "
+                 f"{PG_FINAL_COST_TOL}), costs {costs}, CPU {costs_cpu}")
+        errs[f"pose_graph n_fixed={n_fixed}"] = pg_err
+        errs[f"pose_graph n_fixed={n_fixed} final cost (of the initial)"] = (
+            cost_rel)
+    say(f"phase 7: backend ops at K {K}, card vs CPU (max abs error): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; BA window of {len(window)} keyframes error curve "
+        f"{err_rel:.3g} relative; 64-node pose graph with loop edges, frozen "
+        f"nodes bit for bit ({card})")
+
+
+def _slam_gates(tag, engine, gt, bound):
+    """A run's gates: finite poses, a BA run and a closure, no backend
+    error, ATE below ``bound`` (m), and the newest BA window's error curve
+    and the newest closure's pose-graph cost falling."""
+    from steroscopic_hardware_tpu_torch.models.slam import ate_rmse
+
+    ate = ate_rmse(engine.vo.positions(), gt)
+    ba, pg = engine.last_ba_errs, engine.last_pg_costs
+    if not (np.isfinite(np.stack(engine.vo.trajectory)).all()
+            and engine.ba_runs >= 1 and engine.loops_closed >= 1
+            and engine.backend_errors == 0 and ate < bound
+            and ba[-1] < ba[0] and pg[-1] < pg[0]):
+        fail(f"StereoSLAM {tag}: ba_runs {engine.ba_runs}, loops_closed "
+             f"{engine.loops_closed}, backend_errors "
+             f"{engine.backend_errors}, ATE {ate} (bound {bound}), newest "
+             f"BA error curve {ba}, pose-graph costs {pg}")
+    return ate
+
+
+def profile_stages(engine):
+    """Device ms and launches of one BA window, one loop check and one
+    pose-graph solve (``engine``'s final state; torch.profiler, kernels
+    attributed to the labels slam.ba, slam.loop, slam.graph by their span
+    on the device timeline). The frames themselves run unprofiled: the
+    profiler's events of a 19-frame run took minutes to process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in (("slam.ba", engine._refine_window),
+                     ("slam.loop", engine._try_loop_closure),
+                     ("slam.graph", engine._optimize_pose_graph)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name == name]
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in SLAM_STAGES
+                   and any(a <= e.time_range.start < b for a, b in spans)]
+        if not kernels:
+            fail(f"the profiler saw no kernel of {name}")
+        out[name] = (sum(k.time_range.elapsed_us() for k in kernels) / 1e3,
+                     len(kernels))
+    return out
+
+
+def phase_slam(card, cam, pairs, gt, vo_stats):
+    """Phase 7.2-7.4: StereoSLAM with BoW loop closure on the card, sync
+    and async, and a checkpoint resume, over phase 6v's 40-frame loop."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.models import slam
+    from steroscopic_hardware_tpu_torch.vo import run_slam
+
+    n = len(pairs)
+    _kernels.reset_launches()
+    engine = slam.StereoSLAM(cam, device="cuda", seed=SEED, **SLAM)
+    ckpt = os.path.join(tempfile.mkdtemp(), "slam-sync.ckpt")
+    first = run_slam(engine, pairs[:SLAM_SAVE_AT])
+    engine.save_checkpoint(ckpt)
+    saved = dict(frame_idx=engine.frame_idx, hist=len(engine.kf_history),
+                 keyframes=len(engine.keyframes),
+                 edges=[(i, j) for i, j, _ in engine.graph_edges])
+    rest = run_slam(engine, pairs[SLAM_SAVE_AT:])
+    launches = dict(_kernels.launches)
+    if launches["sad_lr"] != n:
+        fail(f"StereoSLAM sync: sad_lr launched {launches['sad_lr']} times "
+             f"in {n} frames")
+    ate = _slam_gates("sync", engine, gt, vo_stats["ate"])
+    wall = float(np.median([first["frame_ms_median"],
+                            rest["frame_ms_median"]]))
+    say(f"phase 7: StereoSLAM sync {n} frames ({SLAM}) on the card: ATE "
+        f"{ate:.6f} m (below VO only, phase 6v, {vo_stats['ate']:.6f}), "
+        f"newest BA error curve {engine.last_ba_errs[0]:.6g} -> "
+        f"{engine.last_ba_errs[-1]:.6g}, pose-graph cost "
+        f"{engine.last_pg_costs[0]:.6g} -> {engine.last_pg_costs[-1]:.6g}, "
+        f"ba_runs {engine.ba_runs}, loops_closed "
+        f"{engine.loops_closed}, keyframes {len(engine.kf_history)}, "
+        f"backend_errors {engine.backend_errors}, stage_s "
+        + json.dumps({k: round(v, 4) for k, v in engine.stage_s.items()})
+        + f", frame wall ms median {wall:.4f} (VO only {vo_stats['frame_ms_median']:.4f}), "
+        f"launches {launches} ({card})")
+    check_backend_ops(card, cam, list(engine.keyframes),
+                      K=VO["max_keypoints"])
+
+    asyn = slam.StereoSLAM(cam, device="cuda", seed=SEED,
+                           async_backend=True, **SLAM)
+    try:
+        stats = run_slam(asyn, pairs, gt)
+    finally:
+        asyn.close()
+    ate_async = _slam_gates("async", asyn, gt, SLAM_ATE_BOUND)
+    say(f"phase 7: StereoSLAM async on the card after finish(): ATE "
+        f"{ate_async:.6f} m (bound {SLAM_ATE_BOUND}), ba_runs "
+        f"{asyn.ba_runs}, loops_closed "
+        f"{asyn.loops_closed}, backend_coalesced {asyn.backend_coalesced}, "
+        f"backend_errors {asyn.backend_errors}, frame wall ms median "
+        f"{stats['frame_ms_median']:.4f} (sync {wall:.4f}) ({card})")
+
+    resumed = slam.StereoSLAM.load_checkpoint(
+        ckpt, device="cuda", seed=SEED,
+        **{k: v for k, v in SLAM.items() if k not in ("window", "kf_every")})
+    got = dict(frame_idx=resumed.frame_idx, hist=len(resumed.kf_history),
+               keyframes=len(resumed.keyframes),
+               edges=[(i, j) for i, j, _ in resumed.graph_edges])
+    if got != saved:
+        fail(f"checkpoint resume: {got} != the uninterrupted run's {saved}")
+    run_slam(resumed, pairs[SLAM_SAVE_AT:])
+    ate_resumed = _slam_gates("resumed", resumed, gt, vo_stats["ate"])
+    # the resumed run draws as the uninterrupted one and so repeats it
+    resume_dev = float(np.abs(resumed.vo.positions()
+                              - engine.vo.positions()).max())
+    if resume_dev > SLAM_RESUME_TOL:
+        fail(f"checkpoint resume: camera centres {resume_dev} m from the "
+             f"uninterrupted run's (tolerance {SLAM_RESUME_TOL})")
+    stages = profile_stages(resumed)
+    st = engine.stage_s
+    wall = {"slam.ba": st["ba"] / engine.ba_runs,
+            "slam.loop": (st["loop"] - st["graph"]) / len(engine.kf_history),
+            "slam.graph": st["graph"] / engine.loops_closed}
+    say(f"phase 7: checkpoint after {SLAM_SAVE_AT} frames loaded on the "
+        f"card (frame_idx {got['frame_idx']}, {got['hist']} keyframes, "
+        f"{len(got['edges'])} edges, as the uninterrupted run), then "
+        f"{n - SLAM_SAVE_AT} frames: ATE {ate_resumed:.6f} m (below VO "
+        f"only), camera centres within {resume_dev:.3g} m of the "
+        f"uninterrupted run's; device ms "
+        f"and launches (torch.profiler, on the resumed run's final state) "
+        f"beside the sync run's wall ms per "
+        + ", ".join(f"{name[5:]}: {ms:.4f} ms in {k} launches, wall "
+                    f"{1e3 * wall[name]:.1f} ms"
+                    for name, (ms, k) in stages.items())
+        + f" ({card})")
+    _free()
+    return launches
+
+
+def phase_serve_slam(card, left, right):
+    """Phase 7.5: the live server with --slam --loop-closure at 1080p,
+    fused and then --no-slam-fused, each over a 7 s window that opens
+    once the backend warmup is done."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.__main__ import build_app
+    from steroscopic_hardware_tpu_torch.io.png import write_png
+    from steroscopic_hardware_tpu_torch.ops import sad
+
+    L, R = (torch.from_numpy(a).to("cuda") for a in (left, right))
+    want = sad.disparity_plain(L, R, block_size=16,
+                               max_disparity=64).cpu().numpy()
+    del L, R
+    total = {"sad_wta": 0, "sad_lr": 0}
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        lp, rp = os.path.join(tmp, "left.png"), os.path.join(tmp, "right.png")
+        write_png(lp, left)
+        write_png(rp, right)
+        h, w = left.shape
+        argv = ["--left", lp, "--right", rp, "--fps", "60", "--no-open",
+                "--device", "cuda", "--port", "0", "--slam",
+                "--loop-closure", "--cx", str(w / 2), "--cy", str(h / 2)]
+        for fused in (True, False):
+            tag = "fused" if fused else "no-slam-fused"
+            _kernels.reset_launches()
+            app = build_app(argv + ([] if fused else ["--no-slam-fused"]))
+            app.start()
+            try:
+                base = app.url
+                _wait_frames(base, 20)
+                # the window opens once the backend warmup (a boot thread
+                # that competes for the GIL) is done
+                t_warm = time.time()
+                while not json.loads(_get(base + "/slam")).get("warm"):
+                    if time.time() - t_warm > 120:
+                        fail(f"--slam {tag}: the backend warmup did not "
+                             f"finish in 120 s")
+                    time.sleep(0.1)
+                m0, s0 = _metrics(base), json.loads(_get(base + "/slam"))
+                t0 = time.time()
+                time.sleep(SERVE_SLAM_SECONDS)
+                m1, s1 = _metrics(base), json.loads(_get(base + "/slam"))
+                window = time.time() - t0
+                got = _served_out(base)
+                tum = _get(base + "/slam/trajectory").decode().split("\n")
+                js = json.loads(_get(base + "/slam/trajectory?format=json"))
+            finally:
+                app.shutdown()
+            launches = dict(_kernels.launches)
+            tracked = (app.server.ctx.pipeline.frames if fused
+                       else app.slam_pipeline.frames)
+            rows = [r.split() for r in tum if r]
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"--slam {tag}: /stream/out differs from plain")
+            backend_errors = app.slam_pipeline.slam.backend_errors
+            if not (s1["enabled"] and s1["fused"] == fused
+                    and s1["frames"] > 0 and s1["keyframes"] > 0
+                    and s1["errors"] == 0 and s1["fused_dropped"] == 0
+                    and m1["errors"] == 0 and backend_errors == 0):
+                fail(f"--slam {tag}: backend_errors {backend_errors}, /slam "
+                     f"{json.dumps(s1)[:600]}")
+            if not (rows and all(len(r) == 8 for r in rows)
+                    and len(js["xi"]) >= len(rows)
+                    and np.isfinite(np.array(js["xi"])).all()):
+                fail(f"--slam {tag}: /slam/trajectory does not parse")
+            if launches["sad_lr"] != tracked or launches["sad_wta"] < 1:
+                fail(f"--slam {tag}: sad_lr launched {launches['sad_lr']} "
+                     f"times for {tracked} tracked frames; {launches}")
+            for k in total:
+                total[k] += launches[k]
+            busy = ((m1["device_s"] - m0["device_s"]) / window
+                    if m1["device_s"] is not None else float("nan"))
+            slam_fps = (s1["positions_total"] - s0["positions_total"]) / window
+            lines.append(
+                f"{tag}: served fps {m1['fps']}, lat_serve_p50 "
+                f"{m1.get('lat_serve_p50')} ms p95 {m1.get('lat_serve_p95')} "
+                f"ms, device busy {busy:.4f}, SLAM frames per second "
+                f"{slam_fps:.4f}, keyframes {s1['keyframes']}, ba_runs "
+                f"{s1['ba_runs']}, loops_closed {s1['loops_closed']}, "
+                f"backend_pending {s1['backend_pending']}, warm {s1['warm']}, "
+                f"frames tracked {tracked}, launches {launches}")
+    say(f"phase 7 ok: live --slam --loop-closure {w}x{h} SAD b16 d64, "
+        f"{SERVE_SLAM_SECONDS:.0f} s windows, /stream/out == plain, /slam "
+        f"and /slam/trajectory (TUM, JSON) served; " + "; ".join(lines)
+        + f" ({card})")
+    return total
 
 
 def sad_bound(name, maxd=64, px=H * W):
@@ -1255,20 +1635,34 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    card = phase_build()
-    errs = phase_exact()
-    sgm_errs = phase_sgm_exact()
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("1", phase_build)
+    errs = timed("2", phase_exact)
+    sgm_errs = timed("2s", phase_sgm_exact)
     rng = np.random.default_rng(SEED + 2)
     left, right, truth, edges = truth_pair(rng)
-    phase_truth(left, right, truth, edges, block=7, maxd=64)
-    fused_launches = phase_sgm_truth(left, right, truth, edges)
-    launches = phase_serve(left, right)
-    sgm_launches = phase_sgm_serve(left, right)
+    timed("3", phase_truth, left, right, truth, edges, block=7, maxd=64)
+    fused_launches = timed("3s", phase_sgm_truth, left, right, truth, edges)
+    launches = timed("4", phase_serve, left, right)
+    sgm_launches = timed("4s", phase_sgm_serve, left, right)
     _free()
-    times = phase_times(card)
-    sgm_times = phase_sgm_times(card)
-    phase_fused_frame(card, left, right)
-    b2s, b2s_launches = phase_vo(card)
+    times = timed("5", phase_times, card)
+    sgm_times = timed("5s", phase_sgm_times, card)
+    timed("5f", phase_fused_frame, card, left, right)
+    b2s, b2s_launches, vo_run = timed("6v", phase_vo, card)
+    slam_launches = timed("7 slam", phase_slam, card, *vo_run)
+    serve_slam = timed("7 serve", phase_serve_slam, card, left, right)
+    # phase 7's launches on the SLAM main path: the sync run, the server
+    launches["sad_wta"] += serve_slam["sad_wta"]
+    b2s_launches += slam_launches["sad_lr"] + serve_slam["sad_lr"]
+    say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):
         ms, plain_ms = times[(name, 16, 64)]

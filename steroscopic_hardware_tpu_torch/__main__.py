@@ -4,9 +4,11 @@
 Same flags as the JAX server, plus ``--device {cuda,cpu}`` (default cuda:
 the hand-written kernels, raising at start without a usable GPU; cpu runs
 the plain torch versions). ``--backend sgm`` serves the census/SGM engine
-(``SGMMatcher``) instead of SAD. Flags whose code is not ported yet (SLAM,
-``--calib``, ``--backend xla``) exit with an error instead of being
-ignored.
+(``SGMMatcher``) instead of SAD. ``--slam`` adds live stereo SLAM
+(``SlamPipeline``; the fused serve+track step unless ``--no-slam-fused``),
+its trajectory at ``GET /slam`` and ``GET /slam/trajectory`` and on the
+live page. Flags whose code is not ported yet (``--calib``, ``--backend
+xla``) exit with an error instead of being ignored.
 
 ``build_app`` builds the whole server (matcher, pipelines, sources, HTTP
 server bound to its port) without serving; ``run`` serves it until SIGINT /
@@ -27,7 +29,10 @@ from steroscopic_hardware_tpu_torch.models.blockmatch import (
     BlockMatcher,
     SGMMatcher,
 )
-from steroscopic_hardware_tpu_torch.runtime.pipeline import DepthPipeline
+from steroscopic_hardware_tpu_torch.runtime.pipeline import (
+    DepthPipeline,
+    SlamPipeline,
+)
 from steroscopic_hardware_tpu_torch.runtime.server import AppContext, Server
 from steroscopic_hardware_tpu_torch.runtime.sources import (
     SerialSource,
@@ -35,14 +40,7 @@ from steroscopic_hardware_tpu_torch.runtime.sources import (
 )
 
 # flags of the JAX server whose code is not ported yet: dest -> flag
-_NOT_PORTED = {
-    "slam": "--slam", "slam_frontend": "--slam-frontend",
-    "slam_fused": "--no-slam-fused", "calib": "--calib",
-    "fx": "--fx", "fy": "--fy", "cx": "--cx", "cy": "--cy",
-    "baseline": "--baseline",
-    "slam_checkpoint_dir": "--slam-checkpoint-dir",
-    "loop_closure": "--loop-closure", "pg_horizon": "--pg-horizon",
-}
+_NOT_PORTED = {"calib": "--calib"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -66,22 +64,35 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="auto/pallas: the SAD kernels; sgm: the census/SGM engine; "
              "xla is not available in this package",
     )
-    # SLAM, rectification and their camera model are not ported yet; any
-    # use of these flags exits with an error (see _NOT_PORTED)
-    ap.add_argument("--slam", action="store_true", default=None)
-    ap.add_argument("--slam-frontend", default=None,
-                    choices=["sad", "sgm", "sgm_half"])
+    ap.add_argument("--slam", action="store_true",
+                    help="run live stereo SLAM; trajectory at GET /slam")
+    ap.add_argument("--slam-frontend", default="sad",
+                    choices=["sad", "sgm", "sgm_half"],
+                    help="SLAM tracking front end: sad (fastest), sgm "
+                         "(census quality), sgm_half (census at half "
+                         "resolution)")
     ap.add_argument("--no-slam-fused", dest="slam_fused",
-                    action="store_false", default=None)
+                    action="store_false", default=True,
+                    help="track on the SLAM pipeline's own thread (its own "
+                         "upload of the newest pair) instead of inside the "
+                         "serve step")
+    # rectification is not ported yet: the flag exits with an error
     ap.add_argument("--calib", default=None)
-    ap.add_argument("--fx", type=float, default=None)
-    ap.add_argument("--fy", type=float, default=None)
+    ap.add_argument("--fx", type=float, default=500.0)
+    ap.add_argument("--fy", type=float, default=500.0)
     ap.add_argument("--cx", type=float, default=None)
     ap.add_argument("--cy", type=float, default=None)
-    ap.add_argument("--baseline", type=float, default=None)
-    ap.add_argument("--slam-checkpoint-dir", default=None)
-    ap.add_argument("--loop-closure", action="store_true", default=None)
-    ap.add_argument("--pg-horizon", type=int, default=None)
+    ap.add_argument("--baseline", type=float, default=0.1,
+                    help="stereo baseline in meters")
+    ap.add_argument("--slam-checkpoint-dir", default=None,
+                    help="persist / resume SLAM state here")
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="enable SLAM loop closure (BoW place recognition "
+                         "+ pose-graph re-optimization)")
+    ap.add_argument("--pg-horizon", type=int, default=None,
+                    help="fixed-lag pose graph: each closure optimizes only "
+                         "the newest N keyframe poses (older ones frozen); "
+                         "default: the whole graph")
     ap.add_argument("--auth-token", default=os.environ.get("SHTPU_TOKEN"),
                     help="require this bearer token on every endpoint "
                          "except /checkhealth (header 'Authorization: "
@@ -122,7 +133,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     for dest, flag in _NOT_PORTED.items():
         if getattr(args, dest) is not None:
             ap.error(f"{flag} is not ported to steroscopic_hardware_tpu_torch "
-                     "yet (SLAM and rectification come in later slices)")
+                     "yet (rectification comes in a later slice)")
     if args.backend == "xla":
         ap.error("--backend xla: there is no plain path on the GPU; "
                  "--device cpu runs the plain torch versions")
@@ -133,12 +144,14 @@ class App:
     """A built server: matcher, pipelines, sources and the HTTP server
     (bound, not yet serving)."""
 
-    def __init__(self, args, manager, matcher, server, log):
+    def __init__(self, args, manager, matcher, server, log,
+                 slam_pipeline=None):
         self.args = args
         self.manager = manager
         self.matcher = matcher
         self.server = server
         self.log = log
+        self.slam_pipeline = slam_pipeline
 
     @property
     def url(self) -> str:
@@ -173,10 +186,29 @@ def build_app(argv=None) -> App:
         return BlockMatcher(device=args.device)
 
     matcher = make_matcher()  # raises here on --device cuda without a GPU
+    slam_pipeline = None
+    if args.slam:
+        from steroscopic_hardware_tpu_torch.models.slam import StereoCamera
+
+        cam = StereoCamera(
+            fx=args.fx, fy=args.fy,
+            cx=args.cx if args.cx is not None else 320.0,
+            cy=args.cy if args.cy is not None else 240.0,
+            baseline=args.baseline)
+        slam_pipeline = SlamPipeline(
+            manager.bus, cam, checkpoint_dir=args.slam_checkpoint_dir,
+            slam_kwargs={"loop_closure": args.loop_closure,
+                         "frontend": args.slam_frontend,
+                         "pg_horizon": args.pg_horizon,
+                         "device": args.device})
+    # fused serve+track (the default with --slam): the serve step tracks
+    # every frame of its batch, one upload and one copy back for both
     pipeline = DepthPipeline(manager.bus, matcher, lr_check=args.lr_check,
                              preview_scale=args.preview_scale,
                              host_colorize=args.host_colorize,
-                             dedup_uploads=args.dedup_uploads)
+                             dedup_uploads=args.dedup_uploads,
+                             slam_pipeline=slam_pipeline,
+                             fuse_slam=args.slam_fused)
 
     rigs = {}
     for spec in args.rig:
@@ -200,7 +232,7 @@ def build_app(argv=None) -> App:
     ctx = AppContext(pipeline, manager=manager,
                      auth_token=args.auth_token,
                      max_stream_clients=args.max_stream_clients,
-                     rigs=rigs)
+                     rigs=rigs, slam_pipeline=slam_pipeline)
 
     serial_slots = set()
     for spec in args.serial:
@@ -225,7 +257,7 @@ def build_app(argv=None) -> App:
 
     server = Server(ctx, host=args.host, port=args.port,
                     tls_cert=args.tls_cert, tls_key=args.tls_key)
-    return App(args, manager, matcher, server, log)
+    return App(args, manager, matcher, server, log, slam_pipeline)
 
 
 def run(argv=None) -> None:

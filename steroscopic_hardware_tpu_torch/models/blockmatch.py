@@ -270,16 +270,21 @@ class BlockMatcher(_Engine):
         return self._serve_async(self.store.get(), pairs, lr, preview_scale,
                                  fetch_all, colorize_dev)
 
+    def serve_fn(self, p, lr, preview_scale, fetch_all, colorize_dev):
+        """The serve step with parameters ``p`` as a function of the
+        stacked device batch (also the serve half of the fused serve+track
+        step, ``runtime/fused.py``)."""
+        return functools.partial(
+            serve_step, block_size=p.block_size,
+            max_disparity=p.max_disparity, lr=lr,
+            threshold=self._threshold(), preview_scale=preview_scale,
+            fetch_all=fetch_all, colorize_dev=colorize_dev)
+
     def _serve_async(self, p, pairs, lr, preview_scale, fetch_all,
                      colorize_dev) -> ServeFuture:
         return enqueue_serve(self.device, self._launch_lock, pairs,
-                             functools.partial(
-                                 serve_step, block_size=p.block_size,
-                                 max_disparity=p.max_disparity, lr=lr,
-                                 threshold=self._threshold(),
-                                 preview_scale=preview_scale,
-                                 fetch_all=fetch_all,
-                                 colorize_dev=colorize_dev))
+                             self.serve_fn(p, lr, preview_scale, fetch_all,
+                                           colorize_dev))
 
     # -- warmup -------------------------------------------------------------
     def warmup(self, shape, params_list=None, lr: bool = False) -> int:
@@ -375,15 +380,19 @@ class SGMMatcher(_Engine):
                             colorize_dev: bool = True) -> ServeFuture:
         """The serve step of :meth:`BlockMatcher.compute_serve_async` with
         the SGM chain per frame (:func:`sgm_serve_step`)."""
-        p = self.store.get()
         return enqueue_serve(self.device, self._launch_lock, pairs,
-                             functools.partial(
-                                 sgm_serve_step,
-                                 max_disparity=p.max_disparity, p1=self.p1,
-                                 p2=self.p2, subpixel=self.subpixel, lr=lr,
-                                 preview_scale=preview_scale,
-                                 fetch_all=fetch_all,
-                                 colorize_dev=colorize_dev))
+                             self.serve_fn(self.store.get(), lr,
+                                           preview_scale, fetch_all,
+                                           colorize_dev))
+
+    def serve_fn(self, p, lr, preview_scale, fetch_all, colorize_dev):
+        """The SGM serve step with parameters ``p`` as a function of the
+        stacked device batch (see :meth:`BlockMatcher.serve_fn`)."""
+        return functools.partial(
+            sgm_serve_step, max_disparity=p.max_disparity, p1=self.p1,
+            p2=self.p2, subpixel=self.subpixel, lr=lr,
+            preview_scale=preview_scale, fetch_all=fetch_all,
+            colorize_dev=colorize_dev)
 
 
 def sweep(left, right, block_sizes=VALID_BLOCK_SIZES,

@@ -1,7 +1,7 @@
 """HTTP serving layer (counterpart of ``runtime/server.py``): the same
-routes and status codes, over the port's pipeline. SLAM is not ported
-yet, so ``/slam`` and ``/slam/trajectory`` answer 404 ``{"enabled": false}``
-as the JAX server does without a SLAM pipeline.
+routes and status codes, over the port's pipelines. With a SLAM pipeline
+(``--slam``) ``/slam`` serves its snapshot and ``/slam/trajectory`` the
+whole trajectory; without one both answer 404 ``{"enabled": false}``.
 
 Route parity with ``cmd/routes.go:25-112`` / ``cmd/handlers``:
 
@@ -23,6 +23,12 @@ Route parity with ``cmd/routes.go:25-112`` / ``cmd/handlers``:
   GET  /ports                 ingest endpoint discovery (ports.go:14-61
                               equivalent; TCP listeners instead of UART)
   GET  /metrics               pipeline fps/latency + source status (new)
+  GET  /slam                  live SLAM snapshot: frames, keyframes, BA runs,
+                              loops, backend queue, stage seconds, the newest
+                              4096 camera positions (new)
+  GET  /slam/trajectory       the whole trajectory in TUM form (index tx ty
+                              tz qx qy qz qw, camera to world), or
+                              ?format=json for the raw twists (new)
 
 Implemented on stdlib ThreadingHTTPServer: no third-party web framework,
 graceful shutdown, streaming-friendly (unbounded write timeouts like
@@ -54,6 +60,7 @@ from steroscopic_hardware_tpu_torch.utils.params import (
     validate_params,
 )
 from steroscopic_hardware_tpu_torch.io.png import write_png
+from steroscopic_hardware_tpu_torch.ops import se3_np
 from steroscopic_hardware_tpu_torch.runtime.pipeline import DepthPipeline
 from steroscopic_hardware_tpu_torch.runtime.sources import (
     SerialSource,
@@ -110,7 +117,53 @@ setInterval(async()=>{
 <figure><img id="left"><figcaption>left</figcaption></figure>
 <figure><img id="right"><figcaption>right</figcaption></figure>
 <figure><img id="out"><figcaption>depth</figcaption></figure>
+<figure id="slamfig" style="display:none">
+ <canvas id="slamcv" width="320" height="240"
+  style="border:1px solid #333;background:#000"></canvas>
+ <figcaption>trajectory <span id="slamstats" class="meta"></span>
+ </figcaption>
+</figure>
 </div>
+<script>
+// live SLAM trajectory (top-down x/z), drawn from GET /slam
+async function drawSlam(){
+ try{
+  const TOK=new URLSearchParams(location.search).get('token');
+  const Q=TOK?'?token='+encodeURIComponent(TOK):'';
+  const r=await fetch('/slam'+Q);
+  if(r.status!=200)return;
+  const d=await r.json();
+  if(!d.enabled)return;
+  document.getElementById('slamfig').style.display='';
+  document.getElementById('slamstats').textContent=
+   `${d.positions_total??d.positions.length} poses · `+
+   `${d.keyframes} kf · ${d.loops_closed} loops`+
+   (d.warm?'':' · warming');
+  const cv=document.getElementById('slamcv'),
+        g=cv.getContext('2d');
+  g.fillStyle='#000';g.fillRect(0,0,cv.width,cv.height);
+  const P=d.positions;if(!P||P.length<2)return;
+  let xs=P.map(p=>p[0]),zs=P.map(p=>p[2]);
+  const x0=Math.min(...xs),x1=Math.max(...xs),
+        z0=Math.min(...zs),z1=Math.max(...zs);
+  const s=0.9*Math.min(cv.width/Math.max(x1-x0,1e-6),
+                       cv.height/Math.max(z1-z0,1e-6));
+  const mx=(cv.width-s*(x1-x0))/2,mz=(cv.height-s*(z1-z0))/2;
+  g.strokeStyle='#6d6';g.beginPath();
+  for(let i=0;i<P.length;i++){
+   const x=mx+s*(P[i][0]-x0),y=cv.height-(mz+s*(P[i][2]-z0));
+   i?g.lineTo(x,y):g.moveTo(x,y);
+  }
+  g.stroke();
+  const last=P[P.length-1];
+  g.fillStyle='#e66';
+  g.beginPath();
+  g.arc(mx+s*(last[0]-x0),cv.height-(mz+s*(last[2]-z0)),3,0,7);
+  g.fill();
+ }catch(e){}
+}
+setInterval(drawSlam,1000);drawSlam();
+</script>
 <script>
 // propagate ?token= into every stream/API URL when auth is enabled
 const TOK=new URLSearchParams(location.search).get('token');
@@ -199,10 +252,12 @@ class AppContext:
                  manager: CameraManager | None = None,
                  auth_token: str | None = None,
                  max_stream_clients: int = 32,
-                 rigs: dict[str, DepthPipeline] | None = None):
+                 rigs: dict[str, DepthPipeline] | None = None,
+                 slam_pipeline=None):
         self.manager = manager or CameraManager(pipeline.bus)
         self.bus: FrameBus = self.manager.bus
         self.pipeline = pipeline
+        self.slam_pipeline = slam_pipeline  # SlamPipeline or None
         # multi-rig routing: named extra pipelines over prefixed slots
         # (<rig>.left / <rig>.right -> <rig>.out / <rig>.depth); the
         # unnamed default rig is self.pipeline on left/right/out/depth
@@ -388,8 +443,14 @@ def _make_handler(ctx: AppContext):
                     self._send(200, body, "text/html; charset=utf-8")
                 else:
                     self._json(m)
-            elif path in ("/slam", "/slam/trajectory"):
+            elif path in ("/slam", "/slam/trajectory") and (
+                    ctx.slam_pipeline is None):
                 self._json({"enabled": False}, code=404)
+            elif path == "/slam":
+                self._json({"enabled": True,
+                            **ctx.slam_pipeline.snapshot()})
+            elif path == "/slam/trajectory":
+                self._trajectory()
             elif path == "/exit":
                 self._send(200, shlog.dump_buffer())
             elif path == "/ports":
@@ -426,6 +487,26 @@ def _make_handler(ctx: AppContext):
                             "(serial)"})
             else:
                 self._send(404, b"not found")
+
+        def _trajectory(self):
+            """The whole trajectory, for offline evaluation: TUM form by
+            default (index tx ty tz qx qy qz qw per line, camera to
+            world), ?format=json for the raw world->camera twists."""
+            vo = ctx.slam_pipeline.slam.vo
+            with vo.pose_lock:
+                xis = (np.stack(vo.trajectory) if vo.trajectory
+                       else np.zeros((0, 6), np.float32))
+            q = urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query)
+            if q.get("format", ["tum"])[0] == "json":
+                self._json({"xi": xis.tolist()})
+                return
+            pos = se3_np.positions(xis) if len(xis) else xis
+            quat = se3_np.quaternions(xis) if len(xis) else xis
+            lines = [f"{i} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                     f"{r[0]:.6f} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f}"
+                     for i, (p, r) in enumerate(zip(pos, quat))]
+            self._send(200, ("\n".join(lines) + "\n").encode(),
+                       "text/plain; charset=utf-8")
 
         def _stream_once(self, name: str):
             f = ctx.bus.latest(name)
@@ -598,6 +679,8 @@ class Server:
         self.ctx.pipeline.start()
         for pipe in self.ctx.rigs.values():
             pipe.start()
+        if self.ctx.slam_pipeline is not None:
+            self.ctx.slam_pipeline.start()
         self._thread = threading.Thread(
             target=self.httpd.serve_forever, daemon=True
         )
@@ -612,4 +695,6 @@ class Server:
         self.ctx.pipeline.close()
         for pipe in self.ctx.rigs.values():
             pipe.close()
+        if self.ctx.slam_pipeline is not None:
+            self.ctx.slam_pipeline.close()
         self.ctx.manager.close_all()

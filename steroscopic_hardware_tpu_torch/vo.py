@@ -1,10 +1,13 @@
-"""Stereo visual odometry from the command line: ``StereoVO`` over a seeded
-synthetic sequence or a KITTI odometry sequence, one JSON line out (the
-counterpart of the pure-VO engine of ``tools/run_synth_slam.py`` and of
-``examples/run_kitti_vo.py``).
+"""Stereo visual odometry and SLAM from the command line: ``StereoVO`` (or,
+with ``--slam``, ``StereoSLAM``) over a seeded synthetic sequence or a
+KITTI odometry sequence, one JSON line out (the counterpart of the
+engines of ``tools/run_synth_slam.py``, ``vo`` / ``vo+ba`` /
+``vo+ba+loop``, and of ``examples/run_kitti_vo.py``).
 
     python -m steroscopic_hardware_tpu_torch.vo --synthetic \\
         --trajectory loop --frames 40            # on the GPU
+    python -m steroscopic_hardware_tpu_torch.vo --synthetic --slam \\
+        --loop-closure [--async-backend]         # windowed BA (+ loops)
     python -m steroscopic_hardware_tpu_torch.vo --kitti ROOT 00 --frames 200
     python -m steroscopic_hardware_tpu_torch.vo --synthetic --device cpu \\
         --size 120 320 --frames 4 --max-disparity 32
@@ -21,7 +24,13 @@ maxDisparity 128 by default, 512 keypoints, FAST threshold 20.
 The line: frames, fps and the median per-frame wall ms (frames after the
 first, which builds the kernels), ATE RMSE against ground truth where
 there is one, the minimum and median PnP inliers, tracking drops, and the
-share of valid keypoint slots.
+share of valid keypoint slots. ``--slam`` runs a keyframe every
+``--kf-every`` frames, windowed BA over ``--window`` keyframes and, with
+``--loop-closure``, BoW loop closure and the pose graph (``--async-backend``:
+on a backend thread, drained before the line); its line adds ``ba_runs``,
+``loops_closed``, ``keyframes``, ``backend_errors``, the per-stage seconds
+``stage_s`` and ``ate_vo_only``, the ATE of a plain ``StereoVO`` over the
+same frames (run first).
 """
 
 from __future__ import annotations
@@ -81,17 +90,20 @@ def synthetic_sequence(frames, *, trajectory="loop", size=KITTI_SIZE,
     return cam, pairs, gt_positions(xis)
 
 
-def run(vo, pairs, gt=None) -> dict:
-    """Drive ``vo`` over an iterable of pairs; the summary of the JSON
-    line."""
+def run(engine, pairs, gt=None) -> dict:
+    """Drive ``engine`` (a ``StereoVO`` or a ``StereoSLAM``) over an
+    iterable of pairs; the summary of the JSON line."""
+    vo = getattr(engine, "vo", engine)
     ms = []
     valid = []
     t_all = time.perf_counter()
     for left, right in pairs:
         t0 = time.perf_counter()
-        vo.process(left, right)
+        engine.process(left, right)
         ms.append((time.perf_counter() - t0) * 1e3)
         valid.append(float(vo.prev.valid.mean()))
+    if hasattr(engine, "finish"):
+        engine.finish()  # an asynchronous backend's queue, drained
     seconds = time.perf_counter() - t_all
     inl = vo.n_inliers[1:]
     out = {
@@ -110,6 +122,17 @@ def run(vo, pairs, gt=None) -> dict:
         from steroscopic_hardware_tpu_torch.models.slam import ate_rmse
 
         out["ate"] = ate_rmse(vo.positions(), gt[:len(ms)])
+    return out
+
+
+def run_slam(slam, pairs, gt=None) -> dict:
+    """:func:`run` for a ``StereoSLAM``, with its backend's counters."""
+    out = run(slam, pairs, gt)
+    out.update(ba_runs=slam.ba_runs, loops_closed=slam.loops_closed,
+               keyframes=len(slam.kf_history),
+               backend_errors=slam.backend_errors,
+               backend_coalesced=slam.backend_coalesced,
+               stage_s=dict(slam.stage_s))
     return out
 
 
@@ -137,6 +160,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "usable GPU); cpu: the plain torch versions")
     ap.add_argument("--block", type=int, default=9)
     ap.add_argument("--max-disparity", type=int, default=128)
+    ap.add_argument("--slam", action="store_true",
+                    help="StereoSLAM: keyframes and windowed BA")
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="with --slam: BoW loop closure and the pose graph")
+    ap.add_argument("--async-backend", action="store_true",
+                    help="with --slam: BA and loop closure on a backend "
+                         "thread")
+    ap.add_argument("--window", type=int, default=4,
+                    help="with --slam: keyframes in the BA window")
+    ap.add_argument("--kf-every", type=int, default=2,
+                    help="with --slam: a keyframe every N frames")
     return ap.parse_args(argv)
 
 
@@ -158,14 +192,32 @@ def main(argv=None) -> int:
         pairs = (seq.pair(i) for i in range(n))
         gt = seq.gt_positions()
         source = {"kitti": args.kitti}
-    vo = StereoVO(cam, block_size=args.block,
-                  max_disparity=args.max_disparity, max_keypoints=512,
-                  fast_threshold=20, seed=args.seed, frontend=args.frontend,
-                  device=args.device)
+    kw = dict(block_size=args.block, max_disparity=args.max_disparity,
+              max_keypoints=512, fast_threshold=20, seed=args.seed,
+              frontend=args.frontend, device=args.device)
+    vo = StereoVO(cam, **kw)
+    if not args.slam:
+        out = {**source, "frontend": args.frontend, "device": str(vo.device),
+               **run(vo, pairs, gt)}
+        print(json.dumps(out), flush=True)
+        return 0
+    from steroscopic_hardware_tpu_torch.models.slam import StereoSLAM
+
+    pairs = list(pairs)
+    vo_only = run(vo, pairs, gt)["ate"]
+    slam = StereoSLAM(cam, window=args.window, kf_every=args.kf_every,
+                      loop_closure=args.loop_closure,
+                      async_backend=args.async_backend, **kw)
+    try:
+        stats = run_slam(slam, pairs, gt)
+    finally:
+        slam.close()
     out = {**source, "frontend": args.frontend, "device": str(vo.device),
-           **run(vo, pairs, gt)}
+           "engine": "vo+ba+loop" if args.loop_closure else "vo+ba",
+           "async_backend": args.async_backend, **stats,
+           "ate_vo_only": vo_only}
     print(json.dumps(out), flush=True)
-    return 0
+    return 0 if slam.backend_errors == 0 else 1
 
 
 if __name__ == "__main__":

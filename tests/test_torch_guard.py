@@ -49,9 +49,13 @@ from steroscopic_hardware_tpu_torch.vo import main as vo_main
 assert vo_main(["--synthetic", "--device", "cpu", "--size", "96", "160",
                 "--frames", "2", "--max-disparity", "16", "--block", "5",
                 "--trajectory", "straight"]) == 0
-for backend in ("auto", "sgm"):
+assert vo_main(["--synthetic", "--device", "cpu", "--size", "96", "160",
+                "--frames", "3", "--max-disparity", "16", "--block", "5",
+                "--trajectory", "straight", "--slam", "--loop-closure",
+                "--kf-every", "1"]) == 0
+for flags in (["--backend", "auto"], ["--backend", "sgm"], ["--slam"]):
     app = build_app(["--device", "cpu", "--port", "0", "--no-open",
-                     "--backend", backend]).start()
+                     *flags]).start()
     try:
         with urllib.request.urlopen(app.url + "/params", timeout=5) as r:
             assert json.load(r) == {"blockSize": 16, "maxDisparity": 64}
@@ -66,8 +70,9 @@ print("foreign modules:", sorted(
 
 def test_port_never_imports_jax():
     """Every module of the port, a CPU SAD and SGM serve step, a two-frame
-    CPU visual odometry run and the server with both backends load neither
-    jax nor any module of the JAX package."""
+    CPU visual odometry run, a three-frame SLAM run with loop closure and
+    the server with both backends (and with --slam) load neither jax nor
+    any module of the JAX package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
@@ -118,6 +123,23 @@ def test_stereo_vo_cuda_raises_without_a_gpu():
         StereoVO(cam)
     with pytest.raises(RuntimeError, match="cuda"):
         vo_main(["--synthetic", "--frames", "2", "--size", "64", "96"])
+
+
+def test_stereo_slam_cuda_raises_without_a_gpu():
+    _no_cuda()
+    from steroscopic_hardware_tpu_torch.__main__ import build_app
+    from steroscopic_hardware_tpu_torch.models.slam import (
+        StereoCamera,
+        StereoSLAM,
+    )
+
+    cam = StereoCamera(fx=240.0, fy=240.0, cx=160.0, cy=120.0, baseline=0.4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        StereoSLAM(cam, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        StereoSLAM(cam, loop_closure=True)  # cuda is the default
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_app(["--slam", "--port", "0", "--no-open"])
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):
@@ -318,6 +340,72 @@ def test_stereo_vo_launches_sad_lr_once_a_frame(cuda):
     assert min(vo.n_inliers[1:]) >= 15 and vo.tracking_drops == 0
     assert np.abs(vo.positions() - cpu.positions()).max() < 2e-3
     assert ate_rmse(vo.positions(), gt) < 0.02
+
+
+@pytest.mark.gpu
+def test_stereo_slam_and_fused_step_on_the_card(cuda):
+    """StereoSLAM on the card (windowed BA, BoW loop closure and the pose
+    graph solving on the card) runs its backend there as on the CPU, its
+    window solve and pose graph equal the CPU's on the same inputs, and
+    the fused serve+track step launches sad_wta once for the serve and
+    sad_lr (with costs) once per tracked frame, its serve half equal to
+    the unfused serve. The trajectories themselves are not compared: the
+    card and the CPU draw different RANSAC scores, and on this small frame
+    the closures they find moved a mid-sequence pose by 0.126 m."""
+    from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+    from steroscopic_hardware_tpu_torch.models.slam import (
+        StereoSLAM,
+        pose_graph_optimize,
+    )
+    from steroscopic_hardware_tpu_torch.runtime.fused import (
+        FusedServeTrack,
+        split_serve,
+    )
+    from steroscopic_hardware_tpu_torch.utils.params import Parameters
+    from steroscopic_hardware_tpu_torch.vo import synthetic_sequence
+
+    cam, pairs, _ = synthetic_sequence(12, trajectory="loop",
+                                       size=(120, 400))
+    kw = dict(block_size=7, max_disparity=48, max_keypoints=128,
+              fast_threshold=15, window=3, kf_every=1, loop_closure=True,
+              loop_min_matches=25, loop_gap=4)
+    engines = {dev: StereoSLAM(cam, device=dev, **kw)
+               for dev in (cuda, "cpu")}
+    for engine in engines.values():
+        for left, right in pairs:
+            engine.process(left, right)
+    card, cpu = engines[cuda], engines["cpu"]
+    assert card.device.type == "cuda" and card.backend_errors == 0
+    assert card.ba_runs == cpu.ba_runs >= 1 and card.loops_closed >= 1
+    kfs = list(cpu.keyframes)
+    xi0 = np.stack([kf.xi_world for kf in kfs]).astype(np.float32)
+    np.testing.assert_allclose(card._solve_window(kfs, xi0),
+                               cpu._solve_window(kfs, xi0), atol=1e-4)
+    graph = (np.stack([kf.xi_world for kf, _ in cpu.kf_history]),
+             np.array([(i, j) for i, j, _ in cpu.graph_edges]),
+             np.stack([m for _, _, m in cpu.graph_edges]),
+             np.ones(len(cpu.graph_edges), np.float32))
+    solved = [pose_graph_optimize(*(torch.from_numpy(np.asarray(
+        a, np.float32 if a.dtype.kind == "f" else np.int64)).to(dev)
+        for a in graph), iters=10)[0].cpu().numpy()
+        for dev in (cuda, "cpu")]
+    # chip_smoke.py's PG_XI_TOL: sound solves of 32 loop graphs read up to
+    # 1.2e-4, graphs with bfloat16 measurements from 9.9e-3 (PERF.md)
+    np.testing.assert_allclose(solved[0], solved[1], atol=1e-3)
+
+    matcher = BlockMatcher(device=cuda)
+    matcher.set_params(Parameters(block_size=7, max_disparity=48))
+    fused = FusedServeTrack(matcher, StereoSLAM(cam, device=cuda, **kw))
+    _kernels.reset_launches()
+    flat, track = fused.step(pairs[:3], fetch_all=True, colorize_dev=False)
+    assert _kernels.launches["sad_wta"] == 1
+    assert _kernels.launches["sad_lr"] == 3
+    depths, _ = split_serve(flat, 3, 120, 400, fetch_all=True,
+                            colorize_dev=False)
+    want = matcher.compute_serve_async(pairs[:3], fetch_all=True,
+                                       colorize_dev=False).result()
+    assert np.array_equal(depths, want)
+    assert track.bow_vec is not None and len(track.host_features()) == 6
 
 
 @pytest.mark.gpu

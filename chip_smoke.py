@@ -3,7 +3,7 @@ H100, sm_90a): builds the SAD and SGM kernels from
 ``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
 versions, drives the live depth server in-process at 1920x1080 with both
 engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
-and serves live SLAM.
+serves live SLAM, and rectifies and serves a calibrated rig (``--calib``).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -43,10 +43,10 @@ exit code:
   4s. the same with ``--backend sgm``, with and without ``--lr-check``,
      each before and after a retune to maxDisparity 128;
   5. kernel and plain times at 1080p (CUDA events; kernels the median of
-     20 after 3 warm-ups, plain versions of 5 after 1), SAD (sad_lr also with costs; b16 d64, b7 d128, b31 d256) and
-     each SGM stage (sgm_epilogue in all three tiers), beside each
-     kernel's bound and, for B4, the one PyTorch call that computes the
-     same function;
+     20 after 3 warm-ups, plain versions of 5 after 1), SAD (sad_lr also
+     with costs; b16 d64, b7 d128, b31 d256) and each SGM stage
+     (sgm_epilogue in all three tiers), beside each kernel's bound and,
+     for B4, the one PyTorch call that computes the same function;
   5f. the device time of one 1080p d64 SGM frame through the fused chain
      (B5) against the served, unfused one (torch.profiler);
   6v. stereo visual odometry at KITTI odometry's frame geometry (1241x376,
@@ -86,7 +86,24 @@ exit code:
      done (/stream/out == plain, /slam
      and /slam/trajectory served, no error or dropped track, sad_lr once
      per tracked frame; served fps, serve latency, device busy, SLAM
-     frames per second, backend queue).
+     frames per second, backend queue);
+  8. rectification (``--calib``) at 1920x1080 on a synthetic distorted,
+     rotated rig written with ``io/calib.save_calibration``: the maps on
+     the card bit for bit those built on the CPU; remap card against CPU
+     (gate: at most 1 grey level on at most 1e-4 of the pixels; the
+     identity rig exact); the time of one rectified pair through
+     ``StereoRectifier.apply`` (CUDA events, median of 20 after 3
+     warm-ups, its taps built) with its launches (the aten operations
+     dispatched on the card) beside its byte bound, the SAD serve step
+     after it and ``grid_sample``; one host-to-device copy per served
+     batch, of the raw (B, 2, H, W) stack (counted where torch dispatches
+     it; SAD and --lr-check); the
+     server with --calib: /stream/out == the plain path (the CPU
+     rectifier's frames, then the plain disparity) for SAD, --lr-check
+     and --backend sgm, sad_wta / sad_lr once per batch and sgm_aggregate
+     twice per frame, served fps over 3 s windows with and without
+     --calib; and live --slam --loop-closure --calib (fused): /slam
+     served, no error or dropped track, sad_lr once per tracked frame.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -1612,6 +1629,273 @@ def phase_serve_slam(card, left, right):
     return total
 
 
+# -- phase 8: rectification and calibrated serving at 1080p -------------------
+
+# a synthetic calibrated rig at the reference cameras' size: both cameras
+# fx = fy = 1400 px, principal point off centre, barrel distortion, a small
+# rotation between them and a 12 cm baseline
+RIG_K = [[1400.0, 0.0, 963.0], [0.0, 1400.0, 538.0], [0.0, 0.0, 1.0]]
+RIG_DIST1 = [-0.12, 0.03, 5e-4, -3e-4, 0.0]
+RIG_DIST2 = [-0.10, 0.02, 0.0, 0.0, 0.0]
+RIG_PHI = [0.01, -0.02, 0.005]
+RIG_T = [-0.12, 0.002, 0.001]
+# remap, card against CPU: at most one grey level apart, on at most this
+# share of the pixels (tests/test_torch_rectify.py holds the port's CPU
+# remap to the JAX one by the same rule)
+REMAP_SHARE = 1e-4
+# float32 operations per output pixel and camera of remap: two floors, the
+# clamps and subtractions of the taps and weights (8), the blend's two
+# complements, eight products and three sums, the inside test (4) and the
+# select
+REMAP_OPS = 28
+RECT_SECONDS = 3.0  # served-fps windows, with and without --calib
+SETTLE_FRAMES = 10  # frames served before /stream/out is checked
+
+
+def _write_rig(path, distorted=True):
+    from steroscopic_hardware_tpu_torch.io.calib import save_calibration
+    from steroscopic_hardware_tpu_torch.ops.se3_np import so3_exp
+
+    if distorted:
+        save_calibration(path, K1=RIG_K, K2=RIG_K,
+                         R=so3_exp(np.array(RIG_PHI)), T=RIG_T, size=(H, W),
+                         dist1=RIG_DIST1, dist2=RIG_DIST2)
+    else:  # the identity rig: rectification is a no-op
+        K = [[1400.0, 0.0, W / 2], [0.0, 1400.0, H / 2], [0.0, 0.0, 1.0]]
+        save_calibration(path, K1=K, K2=K, R=np.eye(3), T=[-0.12, 0.0, 0.0],
+                         size=(H, W))
+
+
+def _dispatched(fn):
+    """(ops, uploads) of one call of ``fn``, counted where torch dispatches
+    them in this thread, so no profiler session is needed: ``ops`` names
+    the aten operations that write a tensor on the card, views apart (each
+    one launches a kernel); ``uploads`` gives, of those, each that reads a
+    host tensor of one dimension or more (a copy to the card by any route:
+    ``.to``, ``.cuda``, ``copy_``), its host tensors' shapes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    ops, uploads = [], []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            view = any(r.alias_info is not None and not r.alias_info.is_write
+                       for r in func._schema.returns)
+            if not view and any(isinstance(t, torch.Tensor) and t.is_cuda
+                                for t in tree_leaves(out)):
+                ops.append(func.__name__)
+                host = [tuple(t.shape) for t in tree_leaves((args, kwargs))
+                        if isinstance(t, torch.Tensor)
+                        and t.device.type == "cpu" and t.dim() > 0]
+                if host:
+                    uploads.append(host)
+            return out
+
+    with Log():
+        fn()
+    torch.cuda.synchronize()
+    return ops, uploads
+
+
+def _serve_window(argv, want):
+    """Serve with ``argv`` from zeroed launch counters: after SETTLE_FRAMES
+    frames check /stream/out against ``want`` (None: no check), then count
+    the frames of a RECT_SECONDS window. Returns (window fps, /metrics
+    pipeline dict, the pipeline after shutdown, launches)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.__main__ import build_app
+
+    _kernels.reset_launches()
+    app = build_app(argv).start()
+    try:
+        base = app.url
+        _wait_frames(base, SETTLE_FRAMES)
+        if want is not None:
+            got = _served_out(base)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                n = int((got != want).sum()) if got.shape == want.shape else -1
+                fail(f"{argv[-3:]}: /stream/out differs from the plain path "
+                     f"in {n} pixels")
+        m0, t0 = _metrics(base), time.time()
+        time.sleep(RECT_SECONDS)
+        m1 = _metrics(base)
+        fps = (m1["frames"] - m0["frames"]) / (time.time() - t0)
+    finally:
+        app.shutdown()
+    if m1["errors"]:
+        fail(f"{argv[-3:]}: pipeline errors {m1}")
+    return fps, m1, app.server.ctx.pipeline, dict(_kernels.launches)
+
+
+def phase_rectify(card, left, right):
+    """Phase 8: ``--calib`` at 1080p. The maps card == CPU; remap card
+    against CPU; its time beside its bound; the calibrated server's
+    /stream/out == the plain path (CPU rectifier, then plain disparity) for
+    SAD, --lr-check and --backend sgm; one host-to-device copy per served
+    batch; served fps with and without --calib; live --slam --calib."""
+    from steroscopic_hardware_tpu_torch.io.calib import load_calibration
+    from steroscopic_hardware_tpu_torch.io.png import write_png
+    from steroscopic_hardware_tpu_torch.models.blockmatch import (
+        BlockMatcher,
+        sgm_one,
+    )
+    from steroscopic_hardware_tpu_torch.ops import sad
+    from steroscopic_hardware_tpu_torch.ops.lr_check import check_from_raw
+    from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
+    from steroscopic_hardware_tpu_torch.runtime.pipeline import DepthPipeline
+    from steroscopic_hardware_tpu_torch.utils.params import Parameters
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rig, ident = (os.path.join(tmp, f) for f in ("rig.json", "id.json"))
+        _write_rig(rig)
+        _write_rig(ident, distorted=False)
+        rect, rect_cpu = (load_calibration(rig, device=d)
+                          for d in ("cuda", "cpu"))
+        # 1. the maps, built on the host, reach the card unchanged
+        for a, b in zip(rect._maps, rect_cpu._maps):
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                fail("rectification maps on the card differ from the CPU's")
+        # 2. remap, card against CPU, on phase 4's pair as raw frames
+        raw = torch.from_numpy(np.stack([left, right])[None])
+        stacked = raw.to("cuda")
+        rectified = rect.apply(stacked)
+        want = rect_cpu.apply(raw)
+        diff = (rectified.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        max_diff, share = int(diff.max()), float((diff != 0).double().mean())
+        if max_diff > 1 or share > REMAP_SHARE:
+            fail(f"remap card vs CPU: max {max_diff} levels on {share} of "
+                 f"the pixels (gate 1 on {REMAP_SHARE})")
+        ident_rect = load_calibration(ident, device="cuda")
+        if not torch.equal(ident_rect.apply(stacked), stacked):
+            fail("the identity rig's rectification is not exact")
+        # 3. time of one rectified pair, its launches, its bound, the serve
+        # step it precedes, and grid_sample (a near function: it zeroes
+        # each tap outside the source, remap the whole sample)
+        rect.apply(stacked)  # its taps, built once per source size
+        ms = _time_ms(lambda: rect.apply(stacked))
+        kernels, _ = _dispatched(lambda: rect.apply(stacked))
+        px = H * W
+        bound_ms, bound_by = _bound(2 * px + 2 * 2 * 4 * px + 2 * px,
+                                    2 * REMAP_OPS * px, F32_OPS)
+        serve = BlockMatcher(device="cuda").serve_fn(
+            Parameters(16, 64), False, 1, True, False)
+        serve_ms = _time_ms(lambda: serve(rectified))
+        grid = torch.stack([rect.map_x / (W - 1) * 2 - 1,
+                            rect.map_y / (H - 1) * 2 - 1], dim=-1)
+        grid_ms = _time_ms(lambda: torch.nn.functional.grid_sample(
+            stacked[0, :, None].float(), grid, mode="bilinear",
+            padding_mode="zeros", align_corners=True).to(torch.uint8))
+        out["remap"] = dict(ms=ms, launches=len(kernels), bound_ms=bound_ms,
+                            bound_by=bound_by, max_diff=max_diff, share=share,
+                            serve_ms=serve_ms, grid_sample_ms=grid_ms)
+        say(f"phase 8: remap 1080p pair (2, 1080, 1920) u8: card == CPU maps "
+            f"bit for bit; card vs CPU max {max_diff} levels on {share} of "
+            f"the pixels; identity rig exact; {ms:.4f} ms in {len(kernels)} "
+            f"launches ({' '.join(kernels)}), bound {bound_ms:.4f} ms ({bound_by}); the SAD b16 "
+            f"d64 serve step after it {serve_ms:.4f} ms; grid_sample "
+            f"{grid_ms:.4f} ms ({card})")
+        del grid, diff
+        # 4. one host-to-device copy per served batch (SAD, --lr-check)
+        bus = FrameBus()
+        bus.publish("left", left)
+        bus.publish("right", right)
+        pairs = [(time.time(), (left, right))] * 4
+        for lr in (False, True):
+            pipe = DepthPipeline(bus, BlockMatcher(device="cuda"),
+                                 lr_check=lr, rectifier=rect)
+            pipe._step_batch(pairs)
+            _, htod = _dispatched(lambda: [pipe._step_batch(pairs)
+                                           for _ in range(3)])
+            if htod != [[(len(pairs), 2, H, W)]] * 3:
+                fail(f"rectified serve, lr={lr}: {len(htod)} host-to-device "
+                     f"copies in 3 batches, of host tensors {htod}")
+        # 5. the calibrated server against the plain path: the CPU
+        # rectifier's frames, then the plain disparity
+        L, R = (t.to("cuda") for t in want[0])
+        plain = {"sad": sad.disparity_plain(L, R, block_size=16,
+                                            max_disparity=64),
+                 "lr": check_from_raw(*sad.disparity_raw_lr_plain(
+                     L, R, block_size=16, max_disparity=64), W, 64)[0]}
+        with _plain_chain():
+            plain["sgm"] = sgm_one(L, R, max_disparity=64, p1=1.0, p2=8.0,
+                                   subpixel=True, lr=False, threshold=1.0)
+        plain = {k: v.cpu().numpy() for k, v in plain.items()}
+        del L, R, stacked, rectified, want
+        _free()
+        lp, rp = os.path.join(tmp, "left.png"), os.path.join(tmp, "right.png")
+        write_png(lp, left)
+        write_png(rp, right)
+        argv = ["--left", lp, "--right", rp, "--fps", "60", "--no-open",
+                "--device", "cuda", "--port", "0"]
+        cal = ["--calib", rig]
+        launches = {}
+        fps = {}
+        for key, flags, check in (
+                ("sad", [], "sad_wta"), ("lr", ["--lr-check"], "sad_lr"),
+                ("sgm", ["--backend", "sgm"], "sgm_aggregate")):
+            fps[key], m, pipe, n = _serve_window(argv + flags + cal,
+                                                 plain[key])
+            launches[key] = n
+            # SAD: one launch per batch; SGM: two aggregations a frame
+            want_n = 2 * pipe.frames if key == "sgm" else pipe.batches
+            if n[check] != want_n or want_n == 0:
+                fail(f"--calib {key}: {check} launched {n[check]} times for "
+                     f"{pipe.batches} batches / {pipe.frames} frames")
+        fps["raw"], _, _, _ = _serve_window(argv, None)
+        out["fps"] = fps
+        # 6. live SLAM on the rectified rig (fused)
+        from steroscopic_hardware_tpu_torch.__main__ import build_app
+        from steroscopic_hardware_tpu_torch import _kernels
+
+        _kernels.reset_launches()
+        app = build_app(argv + cal + ["--slam", "--loop-closure"]).start()
+        try:
+            base, t0 = app.url, time.time()
+            while True:
+                s = json.loads(_get(base + "/slam"))
+                if s["frames"] >= 3 and s["keyframes"] >= 1:
+                    break
+                if time.time() - t0 > 180:
+                    fail(f"--slam --calib: {json.dumps(s)[:400]}")
+                time.sleep(0.1)
+            m = _metrics(base)
+        finally:
+            app.shutdown()
+        tracked = app.server.ctx.pipeline.frames
+        slam = dict(_kernels.launches)
+        backend_errors = app.slam_pipeline.slam.backend_errors
+        # the boot warmup (stopped by the shutdown if still running) must
+        # not have failed: in a fresh process it races the frame thread's
+        # first linear-algebra call
+        warm = app.slam_pipeline._warm_done
+        if not (s["fused"] and s["errors"] == 0 and s["fused_dropped"] == 0
+                and m["errors"] == 0 and backend_errors == 0 and warm
+                and slam["sad_lr"] == tracked > 0):
+            fail(f"--slam --calib: sad_lr {slam['sad_lr']} for {tracked} "
+                 f"tracked frames, backend_errors {backend_errors}, warmup "
+                 f"done {warm}, /slam {json.dumps(s)[:400]}")
+        cam = app.slam_pipeline.slam.cam
+        launches["slam"] = slam
+    nonzero = {k: {n: v for n, v in d.items() if v}
+               for k, d in launches.items()}
+    say(f"phase 8 ok: --calib 1080p /stream/out == CPU rectifier + plain for "
+        f"SAD b16 d64, --lr-check and --backend sgm d64; one host-to-device "
+        f"copy per served batch; served fps over "
+        f"{RECT_SECONDS:.0f} s: --calib {fps['sad']:.2f}, --calib --lr-check "
+        f"{fps['lr']:.2f}, --calib --backend sgm {fps['sgm']:.2f}, without "
+        f"--calib {fps['raw']:.2f}; --slam --loop-closure --calib fused: "
+        f"{s['frames']} SLAM frames, {s['keyframes']} keyframes, camera fx "
+        f"{cam.fx} cx {cam.cx} cy {cam.cy} baseline {cam.baseline:.6f}, "
+        f"sad_lr {slam['sad_lr']} for {tracked} tracked frames; launches "
+        f"{nonzero} ({card})")
+    out["launches"] = launches
+    return out
+
+
 def sad_bound(name, maxd=64, px=H * W):
     """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
     given): two uint8 images in, the uint8 map (sad_wta), two int32 maps
@@ -1619,9 +1903,10 @@ def sad_bound(name, maxd=64, px=H * W):
     per pixel and disparity: one cost evaluation with sliding window sums,
     6 (the vertical window's |a - b| in and out and their add and
     subtract, the horizontal window's difference, and the minimum of the
-    packed key cost * 512 + d, counted as one); sad_lr adds the right map's minimum over the shifted diagonal,
-    2; with costs the neighbour tracking adds 4 (the d - 1 test and the
-    selects of c_left, c_right and the previous cost). So 6, 8 and 12.
+    packed key cost * 512 + d, counted as one); sad_lr adds the right
+    map's minimum over the shifted diagonal, 2; with costs the neighbour
+    tracking adds 4 (the d - 1 test and the selects of c_left, c_right
+    and the previous cost). So 6, 8 and 12.
     Counted once per pixel and d: the kernel's extra work (halo columns,
     window rows rebuilt per tile) is not the function's."""
     if name == "sad_wta":
@@ -1659,9 +1944,18 @@ def main() -> int:
     b2s, b2s_launches, vo_run = timed("6v", phase_vo, card)
     slam_launches = timed("7 slam", phase_slam, card, *vo_run)
     serve_slam = timed("7 serve", phase_serve_slam, card, left, right)
-    # phase 7's launches on the SLAM main path: the sync run, the server
-    launches["sad_wta"] += serve_slam["sad_wta"]
-    b2s_launches += slam_launches["sad_lr"] + serve_slam["sad_lr"]
+    _free()
+    rectify = timed("8", phase_rectify, card, left, right)
+    # phase 7's launches on the SLAM main path: the sync run, the server;
+    # phase 8's on the calibrated one: the served SAD, LR and SGM runs and
+    # live SLAM
+    cal = rectify["launches"]
+    launches["sad_wta"] += serve_slam["sad_wta"] + cal["sad"]["sad_wta"]
+    launches["sad_lr"] += cal["lr"]["sad_lr"]
+    b2s_launches += (slam_launches["sad_lr"] + serve_slam["sad_lr"]
+                     + cal["slam"]["sad_lr"])
+    for name in ("sgm_aggregate", "sgm_transpose_add"):
+        sgm_launches[name] += cal["sgm"][name]
     say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):

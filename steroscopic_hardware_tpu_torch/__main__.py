@@ -7,8 +7,11 @@ the plain torch versions). ``--backend sgm`` serves the census/SGM engine
 (``SGMMatcher``) instead of SAD. ``--slam`` adds live stereo SLAM
 (``SlamPipeline``; the fused serve+track step unless ``--no-slam-fused``),
 its trajectory at ``GET /slam`` and ``GET /slam/trajectory`` and on the
-live page. Flags whose code is not ported yet (``--calib``, ``--backend
-xla``) exit with an error instead of being ignored.
+live page. ``--calib rig.json`` serves raw (unrectified, distorted)
+cameras: the calibration's maps live on ``--device`` and every served
+batch is rectified there after its one upload; with ``--slam`` the
+rectified rig supplies the camera (``K_new`` and the baseline).
+``--backend xla`` exits with an error: there is no XLA here.
 
 ``build_app`` builds the whole server (matcher, pipelines, sources, HTTP
 server bound to its port) without serving; ``run`` serves it until SIGINT /
@@ -38,10 +41,6 @@ from steroscopic_hardware_tpu_torch.runtime.sources import (
     SerialSource,
     StaticSource,
 )
-
-# flags of the JAX server whose code is not ported yet: dest -> flag
-_NOT_PORTED = {"calib": "--calib"}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
@@ -76,8 +75,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="track on the SLAM pipeline's own thread (its own "
                          "upload of the newest pair) instead of inside the "
                          "serve step")
-    # rectification is not ported yet: the flag exits with an error
-    ap.add_argument("--calib", default=None)
+    ap.add_argument("--calib", default=None,
+                    help="stereo calibration JSON (io/calib.py): rectify "
+                         "raw cameras on the device before matching")
     ap.add_argument("--fx", type=float, default=500.0)
     ap.add_argument("--fy", type=float, default=500.0)
     ap.add_argument("--cx", type=float, default=None)
@@ -130,10 +130,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="build the kernels and launch once in the "
                          "background at startup")
     args = ap.parse_args(argv)
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            ap.error(f"{flag} is not ported to steroscopic_hardware_tpu_torch "
-                     "yet (rectification comes in a later slice)")
     if args.backend == "xla":
         ap.error("--backend xla: there is no plain path on the GPU; "
                  "--device cpu runs the plain torch versions")
@@ -145,13 +141,14 @@ class App:
     (bound, not yet serving)."""
 
     def __init__(self, args, manager, matcher, server, log,
-                 slam_pipeline=None):
+                 slam_pipeline=None, rectifier=None):
         self.args = args
         self.manager = manager
         self.matcher = matcher
         self.server = server
         self.log = log
         self.slam_pipeline = slam_pipeline
+        self.rectifier = rectifier
 
     @property
     def url(self) -> str:
@@ -160,8 +157,13 @@ class App:
     def start(self) -> "App":
         self.server.start()
         if self.args.prewarm and hasattr(self.matcher, "warmup"):
+            # the matcher sees rectified frames: warm the calibration's
+            # size (the JAX server warms the raw frames' shape)
             lf = self.manager.bus.latest("left")
-            shape = lf.data.shape if lf is not None else (480, 640)
+            if self.rectifier is not None:
+                shape = self.rectifier.size
+            else:
+                shape = lf.data.shape if lf is not None else (480, 640)
             p = self.matcher.get_params()
             threading.Thread(
                 target=lambda: self.matcher.warmup(
@@ -179,6 +181,14 @@ def build_app(argv=None) -> App:
     args = parse_args(argv)
     log = shlog.get_logger("main")
     manager = CameraManager()
+    rectifier = None
+    if args.calib:
+        from steroscopic_hardware_tpu_torch.io.calib import load_calibration
+
+        # raises here on --device cuda without a GPU
+        rectifier = load_calibration(args.calib, device=args.device)
+        log.info("calibrated rig: rectifying to %s, baseline %.4f m",
+                 rectifier.K_new[:2, 2], rectifier.baseline)
 
     def make_matcher():
         if args.backend == "sgm":
@@ -190,13 +200,22 @@ def build_app(argv=None) -> App:
     if args.slam:
         from steroscopic_hardware_tpu_torch.models.slam import StereoCamera
 
-        cam = StereoCamera(
-            fx=args.fx, fy=args.fy,
-            cx=args.cx if args.cx is not None else 320.0,
-            cy=args.cy if args.cy is not None else 240.0,
-            baseline=args.baseline)
+        if rectifier is not None:
+            # the rectified rig defines the intrinsics: shared K_new,
+            # pure-horizontal baseline
+            K = rectifier.K_new
+            cam = StereoCamera(fx=float(K[0, 0]), fy=float(K[1, 1]),
+                               cx=float(K[0, 2]), cy=float(K[1, 2]),
+                               baseline=rectifier.baseline)
+        else:
+            cam = StereoCamera(
+                fx=args.fx, fy=args.fy,
+                cx=args.cx if args.cx is not None else 320.0,
+                cy=args.cy if args.cy is not None else 240.0,
+                baseline=args.baseline)
         slam_pipeline = SlamPipeline(
             manager.bus, cam, checkpoint_dir=args.slam_checkpoint_dir,
+            rectifier=rectifier,
             slam_kwargs={"loop_closure": args.loop_closure,
                          "frontend": args.slam_frontend,
                          "pg_horizon": args.pg_horizon,
@@ -204,6 +223,7 @@ def build_app(argv=None) -> App:
     # fused serve+track (the default with --slam): the serve step tracks
     # every frame of its batch, one upload and one copy back for both
     pipeline = DepthPipeline(manager.bus, matcher, lr_check=args.lr_check,
+                             rectifier=rectifier,
                              preview_scale=args.preview_scale,
                              host_colorize=args.host_colorize,
                              dedup_uploads=args.dedup_uploads,
@@ -217,7 +237,7 @@ def build_app(argv=None) -> App:
             raise SystemExit(f"bad --rig name {name!r}")
         rigs[name] = DepthPipeline(
             manager.bus, make_matcher(), lr_check=args.lr_check,
-            preview_scale=args.preview_scale,
+            rectifier=rectifier, preview_scale=args.preview_scale,
             host_colorize=args.host_colorize,
             left_slot=f"{name}.left", right_slot=f"{name}.right",
             out_slot=f"{name}.out", depth_slot=f"{name}.depth",
@@ -257,7 +277,8 @@ def build_app(argv=None) -> App:
 
     server = Server(ctx, host=args.host, port=args.port,
                     tls_cert=args.tls_cert, tls_key=args.tls_key)
-    return App(args, manager, matcher, server, log, slam_pipeline)
+    return App(args, manager, matcher, server, log, slam_pipeline,
+               rectifier)
 
 
 def run(argv=None) -> None:

@@ -1,2 +1,4 @@
 """Image I/O (counterpart of ``steroscopic_hardware_tpu.io``): the PNG, PGM
-and LZMA codecs and the KITTI odometry loader."""
+and LZMA codecs, the KITTI odometry loader and the stereo calibration files
+(``calib``: ``load_calibration``, ``parse_calibration``,
+``save_calibration``)."""

@@ -9,8 +9,9 @@ penalties are runtime arguments of the kernels, so a retune needs no
 rebuild.
 
 A serve step takes a (B, 2, H, W) uint8 micro-batch that crossed to the
-device in ONE pinned copy and packs its result into ONE buffer that comes
-back in one copy, in the three layouts of ``_pack_serve``:
+device in ONE pinned copy (rectified there, after the copy, when the
+caller passes a ``StereoRectifier``) and packs its result into ONE buffer
+that comes back in one copy, in the three layouts of ``_pack_serve``:
 ``serve_step`` (the ``_disparity_serve`` counterpart) runs ONE SAD launch
 over all B frames; ``sgm_serve_step`` (``_sgm_serve``) runs the SGM chain
 per frame.
@@ -39,28 +40,13 @@ from steroscopic_hardware_tpu_torch.ops.sgm import (
     sgm_disparity,
     sgm_lr_checked,
 )
+from steroscopic_hardware_tpu_torch.utils.device import resolve_device
 from steroscopic_hardware_tpu_torch.utils.params import (
     VALID_BLOCK_SIZES,
     VALID_MAX_DISPARITIES,
     Parameters,
     ParamStore,
 )
-
-
-def resolve_device(device) -> torch.device:
-    """The explicit device rule: "cuda" needs a usable GPU and raises
-    without one (no silent CPU fallback); "cpu" runs the plain versions."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device 'cpu' to run the plain torch versions")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
-    return dev
 
 
 def serve_step(stacked, *, block_size, max_disparity, lr=False,
@@ -164,12 +150,13 @@ class ServeFuture:
 
 
 def enqueue_serve(device: torch.device, lock: threading.Lock, pairs,
-                  step) -> ServeFuture:
+                  step, rectifier=None) -> ServeFuture:
     """Enqueue one serve step without waiting: stage the (left, right)
     uint8 arrays of one shape into ONE pinned (B, 2, H, W) host buffer,
-    copy it to ``device``, run ``step`` (stacked device batch -> packed
-    uint8 tensor) under ``lock``, and start ONE copy of the packed result
-    back into pinned memory."""
+    copy it to ``device``, rectify it there with ``rectifier`` (a
+    ``StereoRectifier`` on ``device``, or None), run ``step`` (stacked
+    device batch -> packed uint8 tensor) under ``lock``, and start ONE copy
+    of the packed result back into pinned memory."""
     H, W = np.asarray(pairs[0][0]).shape
     cuda = device.type == "cuda"
     host = torch.empty((len(pairs), 2, H, W), dtype=torch.uint8,
@@ -183,7 +170,10 @@ def enqueue_serve(device: torch.device, lock: threading.Lock, pairs,
             stream = torch.cuda.current_stream(device)
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-        packed = step(host.to(device, non_blocking=True))
+        stacked = host.to(device, non_blocking=True)
+        if rectifier is not None:
+            stacked = rectifier.apply(stacked)
+        packed = step(stacked)
         if not cuda:
             return ServeFuture(packed)
         out = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
@@ -259,16 +249,19 @@ class BlockMatcher(_Engine):
     def compute_serve_async(self, pairs, lr: bool = False,
                             preview_scale: int = 1,
                             fetch_all: bool = True,
-                            colorize_dev: bool = True) -> ServeFuture:
+                            colorize_dev: bool = True,
+                            rectifier=None) -> ServeFuture:
         """Enqueue the serve step for a micro-batch of frame pairs without
         waiting: ONE pinned (B, 2, H, W) host-to-device copy, one kernel
         launch over the B frames, ONE copy of the packed result back into
         pinned memory (layout per :func:`serve_step`).
 
         ``pairs``: list of (left, right) uint8 arrays of one shape.
+        ``rectifier``: a ``StereoRectifier`` on this engine's device that
+        warps the uploaded batch to its ``size`` before the serve step.
         """
         return self._serve_async(self.store.get(), pairs, lr, preview_scale,
-                                 fetch_all, colorize_dev)
+                                 fetch_all, colorize_dev, rectifier)
 
     def serve_fn(self, p, lr, preview_scale, fetch_all, colorize_dev):
         """The serve step with parameters ``p`` as a function of the
@@ -281,10 +274,10 @@ class BlockMatcher(_Engine):
             fetch_all=fetch_all, colorize_dev=colorize_dev)
 
     def _serve_async(self, p, pairs, lr, preview_scale, fetch_all,
-                     colorize_dev) -> ServeFuture:
+                     colorize_dev, rectifier=None) -> ServeFuture:
         return enqueue_serve(self.device, self._launch_lock, pairs,
                              self.serve_fn(p, lr, preview_scale, fetch_all,
-                                           colorize_dev))
+                                           colorize_dev), rectifier)
 
     # -- warmup -------------------------------------------------------------
     def warmup(self, shape, params_list=None, lr: bool = False) -> int:
@@ -377,13 +370,14 @@ class SGMMatcher(_Engine):
     def compute_serve_async(self, pairs, lr: bool = False,
                             preview_scale: int = 1,
                             fetch_all: bool = True,
-                            colorize_dev: bool = True) -> ServeFuture:
+                            colorize_dev: bool = True,
+                            rectifier=None) -> ServeFuture:
         """The serve step of :meth:`BlockMatcher.compute_serve_async` with
         the SGM chain per frame (:func:`sgm_serve_step`)."""
         return enqueue_serve(self.device, self._launch_lock, pairs,
                              self.serve_fn(self.store.get(), lr,
                                            preview_scale, fetch_all,
-                                           colorize_dev))
+                                           colorize_dev), rectifier)
 
     def serve_fn(self, p, lr, preview_scale, fetch_all, colorize_dev):
         """The SGM serve step with parameters ``p`` as a function of the

@@ -59,7 +59,6 @@ from steroscopic_hardware_tpu_torch.models.ba import (
     ba_solve,
     reproject,
 )
-from steroscopic_hardware_tpu_torch.models.blockmatch import resolve_device
 from steroscopic_hardware_tpu_torch.models.vo import (
     gumbel_scores,
     pnp_ransac,
@@ -75,6 +74,7 @@ from steroscopic_hardware_tpu_torch.ops.matching import (
 )
 from steroscopic_hardware_tpu_torch.ops.sad import disparity_subpixel
 from steroscopic_hardware_tpu_torch.ops.sgm import sgm_disparity_lr
+from steroscopic_hardware_tpu_torch.utils.device import resolve_device
 
 FRONTENDS = ("sad", "sgm", "sgm_half")
 N_HYPOTHESES = 32  # RANSAC hypotheses a frame, as the JAX _track_step
@@ -434,6 +434,17 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype=dtype)
 
 
+def _load_linalg(device) -> None:
+    """Make the process's first CUDA ``torch.linalg`` call here, on one
+    thread. torch loads its CUDA linear-algebra library on that first call,
+    and two threads making it at once (the frame thread's PnP and the
+    backend's or the boot warmup's BA solve) can fail one of them with
+    "lazy wrapper should be called at most once"."""
+    if device.type == "cuda":
+        torch.linalg.solve_ex(torch.ones((1, 1), device=device),
+                              torch.ones((1, 1), device=device))
+
+
 class StereoSLAM:
     """Keyframed stereo SLAM: VO front end + sliding-window BA backend +
     loop closure + pose graph + checkpoint / resume.
@@ -523,6 +534,7 @@ class StereoSLAM:
         # loop-closure RANSAC, reseeded per check (the frame thread owns
         # the VO's generator)
         self._loop_gen = torch.Generator(device=self.device)
+        _load_linalg(self.device)
         if self.async_backend:
             self._backend_thread = threading.Thread(
                 target=self._backend_run, daemon=True, name="slam-backend")

@@ -24,9 +24,8 @@ def check_from_raw(dL, dR, W, max_disparity, *, threshold=1,
     dR_at = torch.gather(dR, -1, idx)
     valid = (dL - dR_at).abs() <= threshold
     disp = normalize(dL, max_disparity)
-    disp = torch.where(valid, disp,
-                       torch.tensor(invalid_value, dtype=torch.uint8,
-                                    device=disp.device))
+    # a Python scalar: no host-to-device copy of a one-element tensor
+    disp = torch.where(valid, disp, invalid_value)
     return disp, valid
 
 

@@ -3,7 +3,9 @@ one copy back per micro-batch cover the depth serve AND the live SLAM
 tracking step.
 
 A micro-batch of B stereo pairs crosses to the device in ONE pinned copy
-(``models/blockmatch.enqueue_serve``). On the device the serve step runs as
+(``models/blockmatch.enqueue_serve``), and with a calibrated rig is
+rectified there (``StereoRectifier.apply``), so the serve step and every
+tracking step see rectified frames. On the device the serve step runs as
 in the unfused pipeline (``serve_step`` / ``sgm_serve_step`` and
 ``pack_serve``), then ``models/slam._track_step`` runs on every frame of
 the batch, chained on the device: frame b tracks against frame b-1's
@@ -100,14 +102,19 @@ class FusedServeTrack:
       matcher: the serving engine (``BlockMatcher`` or ``SGMMatcher``).
       slam: the ``StereoSLAM`` whose VO settings track the frames; it must
         live on the matcher's device.
+      rectifier: a ``StereoRectifier`` on the matcher's device, applied to
+        the uploaded batch before the serve and tracking steps, or None.
     """
 
-    def __init__(self, matcher, slam):
+    def __init__(self, matcher, slam, rectifier=None):
         if slam.device != matcher.device:
             raise ValueError(f"the SLAM engine is on {slam.device}, the "
                              f"matcher on {matcher.device}")
+        if rectifier is not None:
+            rectifier.check_device(matcher.device)
         self.matcher = matcher
         self.slam = slam
+        self.rectifier = rectifier
         self.engine = "sgm" if isinstance(matcher, SGMMatcher) else "sad"
         self.device = matcher.device
         vo = slam.vo
@@ -173,7 +180,7 @@ class FusedServeTrack:
                 t.contiguous().view(torch.uint8).reshape(-1) for t in tail])
 
         fut = enqueue_serve(self.device, self.matcher._launch_lock, pairs,
-                            serve_track)
+                            serve_track, self.rectifier)
         flat = fut.result()
         self.device_ms = fut.device_ms()
         ready = None

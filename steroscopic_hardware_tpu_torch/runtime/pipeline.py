@@ -3,15 +3,18 @@
 
 ``DepthPipeline`` blocks on the in-memory bus for fresh stereo pairs,
 micro-batches up to ``max_batch`` of them, runs the matcher's serve step
-(``BlockMatcher`` or ``SGMMatcher``: one upload and one fetch per batch),
+(``BlockMatcher`` or ``SGMMatcher``: one upload and one fetch per batch;
+with a ``StereoRectifier`` the raw pairs are rectified on the device after
+the upload, so the published maps have the calibration's size),
 publishes the depth maps to the ``out`` slot and the colorized newest
 frame to the ``depth`` slot, and keeps rolling fps / latency metrics. With
 a ``SlamPipeline`` and ``fuse_slam`` the serve step is the fused
 serve+track step (``runtime/fused.py``): every frame of the batch is also
 tracked, and the results go to the SLAM pipeline's thread.
 
-``SlamPipeline`` runs a ``StereoSLAM`` over the bus (the newest pair, or
-the fused step's ``TrackResult``s in order), resumes from and writes
+``SlamPipeline`` runs a ``StereoSLAM`` over the bus (the newest pair,
+rectified first with a calibrated rig, or the fused step's
+``TrackResult``s in order), resumes from and writes
 checkpoints, warms the backend at boot on its own thread, and keeps the
 snapshot that ``GET /slam`` serves.
 """
@@ -53,12 +56,17 @@ class DepthPipeline:
     def __init__(self, bus: FrameBus, matcher: BlockMatcher,
                  left_slot="left", right_slot="right", out_slot="out",
                  lr_check: bool = False, colorize: bool = True,
-                 depth_slot="depth", max_batch: int = 8,
+                 rectifier=None, depth_slot="depth", max_batch: int = 8,
                  preview_scale: int = 1, host_colorize: bool = True,
                  max_queue: int | None = None, dedup_uploads: bool = False,
                  slam_pipeline=None, fuse_slam: bool = True):
         self.bus = bus
         self.matcher = matcher
+        # calibrated rig: the uploaded batch is rectified on the device
+        # (one upload and one copy back per batch, as unrectified)
+        if rectifier is not None:
+            rectifier.check_device(matcher.device)
+        self.rectifier = rectifier
         self.max_batch = max_batch
         # fused serve+track: with a SLAM pipeline on the same frames, one
         # upload and one copy back per batch cover the depth serve and the
@@ -70,7 +78,8 @@ class DepthPipeline:
                 FusedServeTrack,
             )
 
-            self._fused = FusedServeTrack(matcher, slam_pipeline.slam)
+            self._fused = FusedServeTrack(matcher, slam_pipeline.slam,
+                                          rectifier)
             slam_pipeline.enable_fused()
         # preview_scale > 1: "light" fetches — only the newest depth comes
         # back full-res and the RGB preview is k x k mean-pooled before
@@ -144,10 +153,18 @@ class DepthPipeline:
             left, right = left[:h, :w], right[:h, :w]
         return left, right
 
+    def _out_shape(self, frames):
+        """(H, W) of the served maps: the calibration's size, or the raw
+        frames'."""
+        if self.rectifier is not None:
+            return self.rectifier.size
+        return frames[-1][0].shape
+
     def _serve(self, frames, **kw) -> np.ndarray:
         """Run the matcher's serve step, wait for its result and add its
         device span to ``device_s``."""
-        fut = self.matcher.compute_serve_async(frames, lr=self.lr_check, **kw)
+        fut = self.matcher.compute_serve_async(
+            frames, lr=self.lr_check, rectifier=self.rectifier, **kw)
         out = fut.result()
         ms = fut.device_ms()
         if ms is not None:
@@ -173,7 +190,7 @@ class DepthPipeline:
             self.device_s += self._fused.device_ms / 1000
         track.t_capture = t_capture
         self.slam_pipeline.submit_track(track)
-        H, W = frames[-1][0].shape
+        H, W = self._out_shape(frames)
         return split_serve(flat, len(frames), H, W, **sargs)
 
     def _step_batch(self, pairs) -> np.ndarray:
@@ -184,7 +201,7 @@ class DepthPipeline:
         t_start = time.time()
         k = self.preview_scale
         frames = [p for _, p in pairs]
-        H, W = frames[-1][0].shape
+        H, W = self._out_shape(frames)
         rgb = None
         if self._fused is not None:
             depths, rgb = self._serve_fused(frames, t0s[-1])
@@ -390,6 +407,9 @@ class SlamPipeline:
         solves never stall the frame loop.
       checkpoint_dir: resume from the newest checkpoint there and write one
         every ``checkpoint_every`` frames (keeping the newest three).
+      rectifier: a ``StereoRectifier``; unfused, each pair is rectified
+        before ``StereoSLAM.process`` (a round trip to the rectifier's
+        device; fused, the depth pipeline's step rectifies).
     """
 
     # fused TrackResults queued beyond this many drop the oldest (a dead or
@@ -399,7 +419,7 @@ class SlamPipeline:
     def __init__(self, bus: FrameBus, camera, *, left_slot="left",
                  right_slot="right", slam_kwargs=None,
                  checkpoint_dir: str | None = None,
-                 checkpoint_every: int = 50):
+                 checkpoint_every: int = 50, rectifier=None):
         from steroscopic_hardware_tpu_torch.models.slam import StereoSLAM
 
         slam_kwargs = dict(slam_kwargs or {})
@@ -407,6 +427,7 @@ class SlamPipeline:
         self.bus = bus
         self.left_slot = left_slot
         self.right_slot = right_slot
+        self.rectifier = rectifier
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.log = get_logger("slam")
@@ -517,6 +538,8 @@ class SlamPipeline:
             h = min(left.shape[0], right.shape[0])
             w = min(left.shape[1], right.shape[1])
             left, right = left[:h, :w], right[:h, :w]
+        if self.rectifier is not None:
+            left, right = self.rectifier(left, right)
         xi = self.slam.process(left, right)
         self.frames += 1
         self._after_step()

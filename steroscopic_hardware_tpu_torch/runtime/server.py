@@ -690,7 +690,8 @@ class Server:
 
     def shutdown(self):
         self.ctx.closing.set()
-        self.httpd.shutdown()
+        if self._thread is not None:  # serve_forever runs only once started
+            self.httpd.shutdown()
         self.httpd.server_close()
         self.ctx.pipeline.close()
         for pipe in self.ctx.rigs.values():

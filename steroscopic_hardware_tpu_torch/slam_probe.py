@@ -41,9 +41,12 @@ limit). Then one JSON line per row, in three parts:
   picks a subset, in order; the stubs need a ``sync`` run before them).
 * ``live``: the live server (``--slam --loop-closure --no-slam-fused``,
   SAD b16 d64, ``--live-size``) with the asynchronous backend (the
-  default) and with a synchronous one, each read over ``--live-seconds``
-  once the backend warmup is done: SLAM frames per second (``/slam``
-  ``positions_total``), served fps, BA runs, closures.
+  default) and with a synchronous one, each read over a window that
+  opens once the backend warmup is done and the depth pipeline has
+  published a frame after it, and closes after ``--live-seconds`` and at
+  least one served and one tracked frame (a run that serves or tracks
+  nothing in ``LIVE_TIMEOUT`` seconds fails): SLAM frames per second
+  (``/slam`` ``positions_total``), served fps, BA runs, closures.
 
 With ``--out`` the rows are also written there as a JSON list.
 """
@@ -235,9 +238,27 @@ def probe_backend(device, frames, size, seed, variants=VARIANTS):
     return rows
 
 
+# seconds the live window may wait for a served frame after the warmup, and
+# then for a served and a tracked frame, before the run fails
+LIVE_TIMEOUT = 120.0
+
+
 def _get_json(url):
     with urllib.request.urlopen(url, timeout=10) as r:
         return json.load(r)
+
+
+def _wait_until(what, test, timeout):
+    """Poll ``test()`` every 20 ms until it returns a true value, which is
+    returned; raise after ``timeout`` seconds."""
+    t0 = time.time()
+    while True:
+        got = test()
+        if got:
+            return got
+        if time.time() - t0 > timeout:
+            raise RuntimeError(f"live: {what} within {timeout:.0f} s")
+        time.sleep(0.02)
 
 
 def probe_live(device, size, seconds, seed, warm_timeout=180.0):
@@ -270,18 +291,29 @@ def probe_live(device, size, seconds, seed, warm_timeout=180.0):
                 pipeline.SlamPipeline.__init__ = init
             try:
                 base, t0 = app.url, time.time()
-                while not _get_json(base + "/slam").get("warm"):
-                    if time.time() - t0 > warm_timeout:
-                        raise RuntimeError("backend warmup did not finish")
-                    time.sleep(0.1)
+                _wait_until("the backend warmup did not finish", lambda: (
+                    _get_json(base + "/slam").get("warm")), warm_timeout)
                 warm_s = time.time() - t0
+                # the window opens on a frame published after the warmup
+                n_warm = _get_json(base + "/metrics")["pipeline"]["frames"]
+                _wait_until("no frame was served after the warmup", lambda: (
+                    _get_json(base + "/metrics")["pipeline"]["frames"]
+                    > n_warm), LIVE_TIMEOUT)
                 s0, m0, t0 = (_get_json(base + "/slam"),
                               _get_json(base + "/metrics")["pipeline"],
                               time.time())
                 time.sleep(seconds)
-                s1, m1, t1 = (_get_json(base + "/slam"),
-                              _get_json(base + "/metrics")["pipeline"],
-                              time.time())
+
+                def closed():
+                    s, m = (_get_json(base + "/slam"),
+                            _get_json(base + "/metrics")["pipeline"])
+                    done = (m["frames"] > m0["frames"]
+                            and s["positions_total"] > s0["positions_total"])
+                    return (s, m, time.time()) if done else None
+
+                s1, m1, t1 = _wait_until(
+                    "the window saw no served and tracked frame", closed,
+                    LIVE_TIMEOUT)
             finally:
                 app.shutdown()
             wall = t1 - t0

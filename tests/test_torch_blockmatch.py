@@ -13,9 +13,9 @@ from steroscopic_hardware_tpu.models.blockmatch import (
 from steroscopic_hardware_tpu.utils.params import Parameters
 from steroscopic_hardware_tpu_torch.models.blockmatch import (
     BlockMatcher,
-    resolve_device,
     serve_step,
 )
+from steroscopic_hardware_tpu_torch.utils.device import resolve_device
 from steroscopic_hardware_tpu_torch.utils.params import (
     Parameters as PortParameters,
 )

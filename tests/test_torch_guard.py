@@ -778,3 +778,84 @@ def test_sgm_launchers_reject_bad_inputs(cuda):
         k.sgm_transpose_add(cost, cost.to(torch.bfloat16), torch.float32)
     with pytest.raises(ValueError, match="agg_ht must be"):
         k.sgm_epilogue(cost, cost[:, :4], True)
+
+
+@pytest.mark.gpu
+def test_rectified_serve_on_the_card(cuda):
+    """A calibrated rig on the card: maps equal to those built on the CPU,
+    remap card against CPU within one grey level on at most 1e-4 of the
+    pixels, a rectified serve through the kernel equal to the plain SAD of
+    the card's rectified frames, and a rectifier on another device than
+    the matcher's refused."""
+    from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+    from steroscopic_hardware_tpu_torch.ops.rectify import StereoRectifier
+    from steroscopic_hardware_tpu_torch.ops.se3_np import so3_exp
+
+    K = np.array([[150.0, 0, 91.5], [0, 150.0, 66.0], [0, 0, 1]])
+    args = (K, (-0.12, 0.03, 5e-4, -3e-4, 0.0), K, (-0.1, 0.02, 0, 0, 0),
+            so3_exp(np.array([0.01, -0.02, 0.005])), [-0.12, 0.002, 0.001],
+            (120, 160))
+    card = StereoRectifier(*args, device=cuda)
+    host = StereoRectifier(*args, device="cpu")
+    for a, b in zip(card._maps, host._maps):
+        assert torch.equal(a.cpu(), b)
+    L, R = _pair(3, (3, 136, 180))
+    raw = torch.stack([L, R], dim=1)
+    got = card.apply(raw.to(cuda)).cpu()
+    diff = (got.to(torch.int32) - host.apply(raw).to(torch.int32)).abs()
+    assert diff.max() <= 1 and (diff != 0).double().mean() <= 1e-4
+    pairs = [(L[b].numpy(), R[b].numpy()) for b in range(3)]
+    m = BlockMatcher(device=cuda)
+    _kernels.reset_launches()
+    served = m.compute_serve_async(pairs, colorize_dev=False,
+                                   rectifier=card).result()
+    assert _kernels.launches["sad_wta"] == 1
+    want = sad.disparity_plain(got[:, 0], got[:, 1], block_size=16,
+                               max_disparity=64)
+    assert np.array_equal(served, want.numpy())
+    with pytest.raises(ValueError, match="rectifier"):
+        BlockMatcher(device="cpu").compute_serve_async(pairs, rectifier=card)
+
+
+_FRESH_SLAM_SCRIPT = r"""
+import json, sys, time, urllib.request
+import numpy as np
+from steroscopic_hardware_tpu_torch.__main__ import build_app
+from steroscopic_hardware_tpu_torch.io.png import write_png
+
+rng = np.random.default_rng(0)
+left = rng.integers(0, 256, (240, 320), dtype=np.uint8)
+write_png(sys.argv[1] + "/l.png", left)
+write_png(sys.argv[1] + "/r.png", np.roll(left, -4, axis=1))
+app = build_app(["--left", sys.argv[1] + "/l.png", "--right",
+                 sys.argv[1] + "/r.png", "--port", "0", "--no-open",
+                 "--slam", "--loop-closure", "--cx", "160", "--cy", "120"])
+app.start()
+try:
+    t0 = time.time()
+    while True:
+        with urllib.request.urlopen(app.url + "/slam", timeout=10) as r:
+            snap = json.load(r)
+        if snap.get("warm") and snap["frames"] >= 2:
+            break
+        assert time.time() - t0 < 180, snap
+        time.sleep(0.1)
+finally:
+    app.shutdown()
+assert app.slam_pipeline._warm_done and snap["errors"] == 0, snap
+assert app.slam_pipeline.slam.backend_errors == 0
+print("ok")
+"""
+
+
+@pytest.mark.gpu
+def test_slam_server_warms_in_a_fresh_process(cuda, tmp_path):
+    """A fresh process: the SLAM boot warmup's BA and the fused step's PnP
+    would make the first CUDA linear-algebra calls at once, and torch's
+    lazy load of that library fails one of two racing threads; the engine
+    makes the first call before its threads start."""
+    res = subprocess.run([sys.executable, "-c", _FRESH_SLAM_SCRIPT,
+                          str(tmp_path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-3000:]
+    assert "warmup failed" not in res.stderr, res.stderr[-3000:]

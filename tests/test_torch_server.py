@@ -163,22 +163,83 @@ def test_serve_probe_on_the_cpu(capsys):
         assert r["lat_serve_p50"] is not None and "device_busy" not in r
 
 
+@pytest.mark.parametrize("flags", [["--backend", "xla"]])
+def test_unported_flags_exit_with_an_error(flags, capsys):
+    """--backend xla has no counterpart here (--device cpu runs the plain
+    torch versions); every other flag of the JAX server is ported."""
+    with pytest.raises(SystemExit) as e:
+        build_app(["--device", "cpu", "--no-open", "--port", "0", *flags])
+    assert e.value.code == 2
+    assert flags[0] in capsys.readouterr().err
+
+
+def _rig_file(tmp_path):
+    from steroscopic_hardware_tpu_torch.io.calib import save_calibration
+
+    path = str(tmp_path / "rig.json")
+    K = np.array([[200.0, 0, 85.0], [0, 200.0, 22.0], [0, 0, 1]])
+    save_calibration(path, K1=K, K2=K, R=np.eye(3), T=[-0.15, 0.0, 0.01],
+                     size=(40, 144), dist1=[-0.1, 0.01, 0.0, 0.0, 0.0])
+    return path
+
+
 @pytest.mark.parametrize("flags", [
     ["--calib", "rig.json", "--slam"],
     ["--calib", "rig.json", "--slam-frontend", "sgm"],
     ["--calib", "rig.json", "--no-slam-fused"],
     ["--calib", "rig.json"], ["--calib", "rig.json", "--loop-closure"],
     ["--calib", "rig.json", "--pg-horizon", "8"],
-    ["--calib", "rig.json", "--fx", "500"], ["--backend", "xla"],
+    ["--calib", "rig.json", "--fx", "500"],
 ])
-def test_unported_flags_exit_with_an_error(flags, capsys):
-    """--calib (rectification) and --backend xla are not ported; the SLAM
-    flags are (tests/test_torch_slam_server.py), and do not make --calib
-    pass."""
-    with pytest.raises(SystemExit) as e:
-        build_app(["--device", "cpu", "--no-open", "--port", "0", *flags])
-    assert e.value.code == 2
-    assert flags[0] in capsys.readouterr().err
+def test_calib_flags_build_an_app_with_a_rectifier(flags, tmp_path):
+    """--calib (rectification) with each SLAM flag builds the server: one
+    rectifier on --device, handed to the depth pipeline (and to the SLAM
+    pipeline), and with --slam the camera from the rectified rig (K_new
+    and the baseline, not --fx)."""
+    path = _rig_file(tmp_path)
+    flags = [path if f == "rig.json" else f for f in flags]
+    app = build_app(["--device", "cpu", "--no-open", "--port", "0", *flags])
+    try:
+        rect = app.rectifier
+        assert rect is not None and rect.device.type == "cpu"
+        assert rect.size == (40, 144) and rect.baseline == pytest.approx(
+            np.hypot(0.15, 0.01))
+        assert app.server.ctx.pipeline.rectifier is rect
+        if "--slam" in flags:
+            slam = app.slam_pipeline
+            assert slam.rectifier is rect
+            cam = slam.slam.cam
+            assert (cam.fx, cam.fy, cam.cx, cam.cy, cam.baseline) == (
+                200.0, 200.0, 72.0, 20.0, rect.baseline)
+        else:
+            assert app.slam_pipeline is None
+    finally:
+        app.shutdown()
+
+
+def test_prewarm_warms_the_calibrated_size(tmp_path, monkeypatch):
+    """--prewarm with --calib warms the rectified size the matcher sees,
+    not the raw frames' shape (the JAX server warms the raw shape)."""
+    from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+
+    rng = np.random.default_rng(5)
+    write_png(str(tmp_path / "l.png"),
+              rng.integers(0, 256, (H, W), dtype=np.uint8))
+    warmed = []
+    monkeypatch.setattr(BlockMatcher, "warmup",
+                        lambda self, shape, *a, **k: warmed.append(shape))
+    app = build_app(["--device", "cpu", "--no-open", "--port", "0",
+                     "--left", str(tmp_path / "l.png"), "--right",
+                     str(tmp_path / "l.png"), "--calib",
+                     _rig_file(tmp_path), "--prewarm"]).start()
+    try:
+        t0 = time.time()
+        while not warmed:
+            assert time.time() - t0 < 10
+            time.sleep(0.01)
+    finally:
+        app.shutdown()
+    assert warmed == [(40, 144)]
 
 
 @pytest.mark.parametrize("colorize,host_colorize,k,lr", [

@@ -129,13 +129,19 @@ def test_slam_checkpoint_dir_resumes(pngs, tmp_path):
             time.sleep(0.1)
     finally:
         app.shutdown()
-    resumed = build_app(argv).slam_pipeline
-    assert isinstance(resumed, pipeline.SlamPipeline)
-    # the pipeline resumes at the engine's frame index (fused, a
-    # checkpoint is named by TrackResults, which carry batches of frames)
-    assert resumed.frames == resumed.slam.frame_idx >= 2
-    assert len(resumed.slam.vo.trajectory) == resumed.frames
-    assert resumed.slam.kf_history
+    resumed_app = build_app(argv)
+    try:
+        resumed = resumed_app.slam_pipeline
+        assert isinstance(resumed, pipeline.SlamPipeline)
+        # the pipeline resumes at the engine's frame index (fused, a
+        # checkpoint is named by TrackResults, which carry batches of
+        # frames)
+        assert resumed.frames == resumed.slam.frame_idx >= 2
+        assert len(resumed.slam.vo.trajectory) == resumed.frames
+        assert resumed.slam.kf_history
+    finally:
+        # never started: this closes its sources, socket and SLAM backend
+        resumed_app.shutdown()
 
 
 def test_slam_flags_take_the_jax_defaults():

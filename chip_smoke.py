@@ -3,7 +3,8 @@ H100, sm_90a): builds the SAD and SGM kernels from
 ``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
 versions, drives the live depth server in-process at 1920x1080 with both
 engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
-serves live SLAM, and rectifies and serves a calibrated rig (``--calib``).
+serves live SLAM, rectifies and serves a calibrated rig (``--calib``), and
+runs the multi-process tier over 2 and 4 ranks on the card.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -103,7 +104,23 @@ exit code:
      and --backend sgm, sad_wta / sad_lr once per batch and sgm_aggregate
      twice per frame, served fps over 3 s windows with and without
      --calib; and live --slam --loop-closure --calib (fused): /slam
-     served, no error or dropped track, sad_lr once per tracked frame.
+     served, no error or dropped track, sad_lr once per tracked frame;
+  9. the multi-process tier (``parallel/``) over 2 and 4 gloo ranks on the
+     one card (``parallel.dryrun.launch_cases``; each rank a process of its
+     own; gloo stages the collectives' CUDA tensors through the host):
+     row-band SAD with its halo exchange (b16 d64, b31 d256) and
+     scanline-sharded SGM with its
+     all_to_all (d64, subpixel on and off) on phase 3's 1080p pair,
+     gathered, == one process bit for bit, each rank launching sad_wta
+     once, sgm_transpose_add once, sgm_aggregate twice and sgm_epilogue
+     once a frame; landmark-sharded BA at the SLAM window's size (4 x 512)
+     and an edge-sharded 64-node pose graph with loop edges against one
+     process (the JAX tests' gates; the pose graph's twists bit for
+     bit); StereoSLAM(pg_mesh=) over 2 ranks on
+     phase 7's frames (a loop closed on each rank, the same keyframes,
+     camera centres within 1 mm of phase 7's sync run); each case's
+     seconds per rank and the bytes each rank sent through the halo and
+     the all_to_all (no speed is claimed: the ranks share one card).
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -1520,6 +1537,8 @@ def phase_slam(card, cam, pairs, gt, vo_stats):
         fail(f"checkpoint resume: camera centres {resume_dev} m from the "
              f"uninterrupted run's (tolerance {SLAM_RESUME_TOL})")
     stages = profile_stages(resumed)
+    ref = {"positions": engine.vo.positions(),
+           "keyframes": [ti for _, ti in engine.kf_history]}
     st = engine.stage_s
     wall = {"slam.ba": st["ba"] / engine.ba_runs,
             "slam.loop": (st["loop"] - st["graph"]) / len(engine.kf_history),
@@ -1537,7 +1556,7 @@ def phase_slam(card, cam, pairs, gt, vo_stats):
                     for name, (ms, k) in stages.items())
         + f" ({card})")
     _free()
-    return launches
+    return launches, ref
 
 
 def phase_serve_slam(card, left, right):
@@ -1896,6 +1915,143 @@ def phase_rectify(card, left, right):
     return out
 
 
+PAR_WORLDS = (2, 4)        # ranks on the one card
+PAR_SAD = ((16, 64), (31, 256))  # h 15 < 270 rows a band at 4 ranks
+PAR_SGM_MAXD = 64
+PAR_BA = (4, 512)          # the SLAM window: keyframes x landmarks
+PAR_PG_NODES = 64
+PAR_ITERS = 10
+PAR_SLAM_WORLD = 2
+PAR_SLAM_TOL = 1e-3        # m, camera centres against phase 7's sync run
+# each rank's launches per frame: the no-fallback gate
+PAR_LAUNCHES = {"sad": {"sad_wta": 1},
+                "sgm": {"sgm_transpose_add": 1, "sgm_aggregate": 2,
+                        "sgm_epilogue": 1}}
+
+
+def parallel_cases(left, right, with_slam):
+    """Phase 9's cases (``parallel.dryrun.run_cases``) and the BA truth:
+    SAD and SGM on the 1080p pair, BA at the SLAM window's size, a 64-node
+    pose graph with loop edges, and StereoSLAM(pg_mesh=) over phase 7's
+    frames."""
+    from steroscopic_hardware_tpu_torch.parallel import dryrun
+    from steroscopic_hardware_tpu_torch.vo import KITTI_SIZE
+
+    rng = np.random.default_rng(SEED + 9)
+    xi, pts, uv, mask, xi_true = dryrun.ba_problem(rng, *PAR_BA)
+    nodes, edges, meas, w = dryrun.loop_graph(rng, PAR_PG_NODES)
+    cases = [(f"sad b{b} d{d}", dict(kind="sad", left=left, right=right,
+                                     block_size=b, max_disparity=d))
+             for b, d in PAR_SAD]
+    cases += [(f"sgm d{PAR_SGM_MAXD} subpixel {int(sub)}",
+               dict(kind="sgm", left=left, right=right, subpixel=sub,
+                    max_disparity=PAR_SGM_MAXD)) for sub in (True, False)]
+    cases += [("ba", dict(kind="ba", xi=xi, points=pts, uv=uv, mask=mask,
+                          intr=dryrun.BA_INTR, iters=PAR_ITERS)),
+              ("pg", dict(kind="pg", nodes=nodes, edges=edges, meas=meas,
+                          w=w, iters=PAR_ITERS))]
+    if with_slam:
+        cases.append(("slam", dict(kind="slam", frames=VO_FRAMES,
+                                   size=KITTI_SIZE, seed=SEED, kwargs=SLAM)))
+    return cases, xi_true
+
+
+def _check_parallel(n, name, case, got, want, xi_true, slam_ref):
+    """Phase 9's gates of one case over n ranks; a summary for the line."""
+    kind = case["kind"]
+    tag = f"phase 9: {name} over {n} ranks"
+    if kind in PAR_LAUNCHES:
+        if not np.array_equal(got["disp"], want["disp"]):
+            fail(f"{tag}: the gathered map differs from one process's on "
+                 f"{int((got['disp'] != want['disp']).sum())} pixels")
+        for j, r in enumerate(got["ranks"]):
+            nz = {k: v for k, v in r["launches"].items() if v}
+            if nz != PAR_LAUNCHES[kind]:
+                fail(f"{tag}: rank {j} launched {nz}, not "
+                     f"{PAR_LAUNCHES[kind]}")
+        return "== one process"
+    if kind == "ba":
+        e, e1 = got["errs"], want["errs"]
+        d_single = float(np.abs(got["xi"] - want["xi"]).max())
+        d_truth = float(np.abs(got["xi"] - xi_true).max())
+        if not (np.allclose(e[0], e1[0], rtol=1e-5) and e[-1] < 1e-3
+                and d_single <= 5e-3 and d_truth <= 5e-3):
+            fail(f"{tag}: errors {e[0]} -> {e[-1]} (one process "
+                 f"{e1[0]}), poses {d_single} from one process's, "
+                 f"{d_truth} from the truth")
+        return (f"error {e[0]:.6g} -> {e[-1]:.3g} px, poses {d_single:.3g} "
+                f"from one process's")
+    if kind == "pg":
+        c, c1 = got["costs"], want["costs"]
+        # the float64 node sums are all-reduced before rounding, so the
+        # twists are one process's bit for bit
+        d = float(np.abs(got["xi"] - want["xi"]).max())
+        if not (np.allclose(c[0], c1[0], rtol=1e-5) and c[-1] < 1e-3 * c[0]
+                and np.array_equal(got["xi"], want["xi"])):
+            fail(f"{tag}: cost {c[0]} -> {c[-1]} (one process {c1[0]}), "
+                 f"twists {d} from one process's (must be equal)")
+        return f"cost {c[0]:.6g} -> {c[-1]:.3g}, twists equal to one " \
+            "process's"
+    ranks = got["per_rank"]
+    devs = []
+    for j, r in enumerate(ranks):
+        dev = float(np.abs(r["positions"] - slam_ref["positions"]).max())
+        devs.append(dev)
+        if (r["loops_closed"] < 1 or r["backend_errors"]
+                or r["keyframes"] != ranks[0]["keyframes"]
+                or dev > PAR_SLAM_TOL):
+            fail(f"{tag}: rank {j} closed {r['loops_closed']} loops, "
+                 f"{r['backend_errors']} backend errors, keyframes "
+                 f"{r['keyframes']} (rank 0 {ranks[0]['keyframes']}), camera "
+                 f"centres {dev} m from phase 7's sync run")
+    return (f"{ranks[0]['loops_closed']} loops closed on each rank, "
+            f"{len(ranks[0]['keyframes'])} keyframes the same on both "
+            f"(phase 7: {len(slam_ref['keyframes'])}), camera centres "
+            f"within {max(devs):.3g} m of phase 7's sync run, frame wall ms "
+            f"median {ranks[0]['frame_ms_median']:.1f}")
+
+
+def phase_parallel(card, left, right, slam_ref):
+    """Phase 9: the multi-process tier (``parallel/``) on the card, 2 and 4
+    gloo ranks through ``parallel.dryrun.launch_cases``: sharded SAD and
+    SGM at 1080p against one process bit for bit with each rank's
+    launches, BA, the pose graph and StereoSLAM(pg_mesh=)."""
+    from steroscopic_hardware_tpu_torch.parallel import dryrun
+
+    launches = {name: 0 for name in SOURCE}
+    want = None
+    for n in PAR_WORLDS:
+        cases, xi_true = parallel_cases(left, right, n == PAR_SLAM_WORLD)
+        t0 = time.perf_counter()
+        got = dryrun.launch_cases(cases, n, backend="gloo", device="cuda")
+        wall = time.perf_counter() - t0
+        if want is None:
+            want = dryrun.single_rank(
+                [c for c in cases if c[1]["kind"] != "slam"],
+                torch.device("cuda", 0))
+        parts = []
+        for name, case in cases:
+            r = got[name]
+            summary = _check_parallel(n, name, case, r, want.get(name),
+                                      xi_true, slam_ref)
+            for rank in r["ranks"]:
+                for k, v in rank["launches"].items():
+                    launches[k] += v
+            secs = [round(rank["seconds"], 4) for rank in r["ranks"]]
+            sent = [rank["sent_bytes"] for rank in r["ranks"]]
+            parts.append(f"{name}: {summary}; seconds by rank {secs}"
+                         + (f", bytes sent by rank (halo, all_to_all) "
+                            f"{[(b['halo'], b['all_to_all']) for b in sent]}"
+                            if case["kind"] in PAR_LAUNCHES else ""))
+        say(f"phase 9: {n} gloo ranks on the one card, launch and all cases "
+            f"{wall:.1f} s; " + "; ".join(parts) + f" ({card})")
+    say(f"phase 9 ok: sharded SAD and SGM == one process bit for bit over "
+        f"{PAR_WORLDS} ranks, each rank sad_wta 1 and sgm_transpose_add 1, "
+        f"sgm_aggregate 2, sgm_epilogue 1 a frame; BA, pose graph and "
+        f"StereoSLAM(pg_mesh=) gates; launches {launches} ({card})")
+    return launches
+
+
 def sad_bound(name, maxd=64, px=H * W):
     """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
     given): two uint8 images in, the uint8 map (sad_wta), two int32 maps
@@ -1942,10 +2098,12 @@ def main() -> int:
     sgm_times = timed("5s", phase_sgm_times, card)
     timed("5f", phase_fused_frame, card, left, right)
     b2s, b2s_launches, vo_run = timed("6v", phase_vo, card)
-    slam_launches = timed("7 slam", phase_slam, card, *vo_run)
+    slam_launches, slam_ref = timed("7 slam", phase_slam, card, *vo_run)
     serve_slam = timed("7 serve", phase_serve_slam, card, left, right)
     _free()
     rectify = timed("8", phase_rectify, card, left, right)
+    _free()
+    par = timed("9", phase_parallel, card, left, right, slam_ref)
     # phase 7's launches on the SLAM main path: the sync run, the server;
     # phase 8's on the calibrated one: the served SAD, LR and SGM runs and
     # live SLAM
@@ -1956,6 +2114,12 @@ def main() -> int:
                      + cal["slam"]["sad_lr"])
     for name in ("sgm_aggregate", "sgm_transpose_add"):
         sgm_launches[name] += cal["sgm"][name]
+    # phase 9's: every rank's sharded SAD, SGM and StereoSLAM(pg_mesh=)
+    launches["sad_wta"] += par["sad_wta"]
+    b2s_launches += par["sad_lr"]
+    for name in ("sgm_aggregate", "sgm_transpose_add"):
+        sgm_launches[name] += par[name]
+    fused_launches["sgm_epilogue"] += par["sgm_epilogue"]
     say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):

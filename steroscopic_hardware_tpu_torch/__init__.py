@@ -18,6 +18,8 @@ stays beside it as the reference the port is held to; this package imports
 - ``io``       — the PNG, PGM and LZMA codecs, the KITTI odometry loader.
 - ``utils``    — parameters and their validation, the synthetic scene.
 - ``despair``  — the reference-parity one-call API (``run_sad`` ...).
+- ``parallel`` — the multi-process tier on ``torch.distributed``: sharded
+                 SAD, SGM, BA and pose graph over a ``DeviceMesh`` of ranks.
 - ``vo``       — ``python -m steroscopic_hardware_tpu_torch.vo``: StereoVO
                  over a synthetic or KITTI sequence, one JSON line.
 - ``csrc``     — the CUDA C++ kernels, built at first use by ``_kernels``.

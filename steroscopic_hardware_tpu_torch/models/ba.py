@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from steroscopic_hardware_tpu_torch.ops import se3
+from steroscopic_hardware_tpu_torch.utils.collectives import all_reduce
 
 
 class BAProblem(NamedTuple):
@@ -116,7 +117,7 @@ def _huber(err, huber_px):
 
 def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
              huber_px: float = 3.0, fix_first_pose: bool = True,
-             axis_name: str | None = None, pose_prior_weight: float = 0.0):
+             group=None, pose_prior_weight: float = 0.0):
     """Run Levenberg-Marquardt BA. Returns (BAProblem with updated
     xi / points, the per-iteration masked mean reprojection error (iters,)
     evaluated at each iteration's starting state).
@@ -127,13 +128,13 @@ def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
     lambda / 2, reject -> lambda * 4). ``pose_prior_weight`` pulls each
     pose toward its initial value (px^2 per squared twist unit).
 
-    ``axis_name`` (the landmark-sharded, multi-process solve of the JAX
-    module) is not ported and raises.
+    ``group`` (a ``torch.distributed`` process group, the counterpart of
+    the JAX ``axis_name``): the landmark axis N of ``prob`` is this rank's
+    block of the landmarks, and every sum over landmarks (the reduced
+    camera system S and b, Hpp, both LM costs and the error) is
+    all-reduced over the group, so every rank solves the same pose system,
+    takes the same accept decision and updates its own landmarks.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ba_solve(axis_name=...): the landmark-sharded solve is not "
-            "ported to steroscopic_hardware_tpu_torch yet")
     M = prob.xi.shape[0]
     dev, f32 = prob.xi.device, torch.float32
     stereo = prob.uv_r is not None
@@ -144,11 +145,19 @@ def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
     def at(xi, points):
         return prob._replace(xi=xi, points=points)
 
-    def total_cost(xi, points):
+    def psum(*xs):
+        return xs if group is None else all_reduce(xs, group)
+
+    def data_cost(xi, points):
+        """This rank's squared reprojection (left and right-camera rows)."""
         p = at(xi, points)
         c = (prob.mask * (residuals(p) ** 2).sum(-1)).sum()
         if stereo:
             c = c + (prob.mask_r * residuals_r(p) ** 2).sum()
+        return c
+
+    def total_cost(c, xi):
+        """The LM acceptance cost: the (summed) data cost + the prior."""
         if pose_prior_weight:
             c = c + pose_prior_weight * (_twist_from(xi, prob.xi) ** 2).sum()
         return c
@@ -161,7 +170,8 @@ def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
 
     xi, points = prob.xi, prob.points
     lam = torch.tensor(damping, dtype=f32, device=dev)
-    wsum = prob.mask.sum().clamp_min(1e-6)
+    (wsum,) = psum(prob.mask.sum())
+    wsum = wsum.clamp_min(1e-6)
     errs = []
     for _ in range(iters):
         p = at(xi, points)
@@ -189,6 +199,8 @@ def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
         HplW = torch.einsum("mnij,njk->mnik", Hpl, Hll_inv)  # (M, N, 6, 3)
         S = -torch.einsum("mnik,lnjk->mlij", HplW, Hpl)    # (M, M, 6, 6)
         b_red = bp - torch.einsum("mnik,nk->mi", HplW, bl)  # (M, 6)
+        err_sum = (prob.mask * err).sum()
+        S, b_red, Hpp, err_sum = psum(S, b_red, Hpp, err_sum)
         S[diag, diag] += Hpp + lam * eye6
         if pose_prior_weight:
             # prior residual rp = log(exp(xi) exp(xi0)^-1); its first-order
@@ -207,9 +219,11 @@ def ba_solve(prob: BAProblem, *, iters: int = 10, damping: float = 1e-3,
         xi_new = _retract(dp, xi)
         points_new = points + dl
 
-        errs.append((prob.mask * err).sum() / wsum)
+        errs.append(err_sum / wsum)
         # LM acceptance: take the step only if the total cost drops
-        accept = total_cost(xi_new, points_new) < total_cost(xi, points)
+        c_new, c_old = psum(data_cost(xi_new, points_new),
+                            data_cost(xi, points))
+        accept = total_cost(c_new, xi_new) < total_cost(c_old, xi)
         xi = torch.where(accept, xi_new, xi)
         points = torch.where(accept, points_new, points)
         lam = torch.where(accept, (lam * 0.5).clamp_min(1e-6),

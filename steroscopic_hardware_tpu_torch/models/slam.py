@@ -74,6 +74,7 @@ from steroscopic_hardware_tpu_torch.ops.matching import (
 )
 from steroscopic_hardware_tpu_torch.ops.sad import disparity_subpixel
 from steroscopic_hardware_tpu_torch.ops.sgm import sgm_disparity_lr
+from steroscopic_hardware_tpu_torch.utils.collectives import all_reduce
 from steroscopic_hardware_tpu_torch.utils.device import resolve_device
 
 FRONTENDS = ("sad", "sgm", "sgm_half")
@@ -424,12 +425,6 @@ def _apply_pose_corrections(xis, seg, old_kf, new_kf):
     return se3_np.se3_log(*se3_np.compose(Rf, tf, Rd[seg], td[seg]))
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to steroscopic_hardware_tpu_torch yet (the "
-        "multi-process tier comes in a later slice)")
-
-
 def _tensor(a, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype=dtype)
 
@@ -457,7 +452,19 @@ class StereoSLAM:
 
     Args: as the JAX ``StereoSLAM``, plus ``device`` ("cuda", which raises
     without a usable GPU, or "cpu"), which the VO and the backend share.
-    ``pg_mesh`` (the edge-sharded pose graph) is not ported and raises.
+
+    ``pg_mesh``: a ``DeviceMesh`` with one dim, or one named "rows" (the
+    JAX rule; else ValueError). Every rank of it runs the same engine on
+    the same frames, SPMD, and each loop closure's pose-graph solve is
+    edge-sharded over the axis (``parallel/pg_dist.py``): the group's
+    first rank's graph goes to every rank, which solves on its 1/n of the
+    padded edges and applies the common result. The ranks must close the
+    same loops on the same graph, which only the synchronous backend
+    gives: with ``async_backend`` the keyframes a rank's backend has seen
+    when it checks a loop, and the loop checks it sheds past
+    ``loop_backlog_cap``, depend on its timing, so ``pg_mesh`` with
+    ``async_backend`` raises ValueError; ranks whose graphs differ in size
+    raise.
     """
 
     def __init__(self, camera: StereoCamera, *, window: int = 4,
@@ -471,8 +478,24 @@ class StereoSLAM:
                  max_loop_keyframes: int = 1500,
                  pg_horizon: int | None = None, device="cuda",
                  **vo_kwargs):
+        self.pg_mesh = pg_mesh
+        self._pg_axis = None
         if pg_mesh is not None:
-            raise _not_ported("StereoSLAM(pg_mesh=...)")
+            names = tuple(pg_mesh.mesh_dim_names or ())
+            if len(names) == 1:
+                self._pg_axis = names[0]
+            elif "rows" in names:
+                self._pg_axis = "rows"
+            else:
+                raise ValueError(
+                    "pg_mesh must have a single axis (or one named "
+                    f"'rows'); got axes {names}")
+            if async_backend:
+                raise ValueError(
+                    "pg_mesh needs the synchronous backend: the ranks of an "
+                    "asynchronous one check and close loops at times of "
+                    "their own, so their pose-graph collectives would not "
+                    "meet")
         if loop_index not in ("bow", "exhaustive"):
             raise ValueError(f"unknown loop_index {loop_index!r}")
         self.vo = StereoVO(camera, device=device, **vo_kwargs)
@@ -490,7 +513,6 @@ class StereoSLAM:
         self.loop_index = loop_index
         self.loop_top_k = loop_top_k
         self.loop_min_score = loop_min_score
-        self.pg_mesh = None
         self._bow = None
         if loop_closure and loop_index == "bow":
             from steroscopic_hardware_tpu_torch.ops.bow import BowIndex
@@ -970,13 +992,17 @@ class StereoSLAM:
         meas = np.pad(meas, ((0, Eb - E), (0, 0)))
         w = np.zeros(Eb, np.float32)
         w[:E] = 1.0
-        n_fixed = None
-        if self.pg_horizon is not None:
-            n_fixed = max(1, M - self.pg_horizon)
         with record_function("slam.graph"):
-            xi_opt, costs = pose_graph_optimize(
-                self._dev(nodes), self._dev(edges), self._dev(meas),
-                self._dev(w), iters=10, n_fixed=n_fixed)
+            if self.pg_mesh is not None:
+                xi_opt, costs = self._sharded_pose_graph(nodes, edges, meas,
+                                                         w)
+            else:
+                n_fixed = None
+                if self.pg_horizon is not None:
+                    n_fixed = max(1, M - self.pg_horizon)
+                xi_opt, costs = pose_graph_optimize(
+                    self._dev(nodes), self._dev(edges), self._dev(meas),
+                    self._dev(w), iters=10, n_fixed=n_fixed)
             xi_opt, costs = _to_host([xi_opt, costs])
         self.last_pg_costs = np.array(costs)
         xi_opt = xi_opt[:M]
@@ -984,6 +1010,35 @@ class StereoSLAM:
             self._apply_pose_result([kf for kf, _ in hist],
                                     [ti for _, ti in hist], old,
                                     list(xi_opt))
+
+    def _sharded_pose_graph(self, nodes, edges, meas, w):
+        """The bucketed graph's solve, edge-sharded over ``pg_mesh`` (as the
+        JAX engine, without ``pg_horizon``): every rank takes the group's
+        first rank's graph and its own block of the padded edges."""
+        from steroscopic_hardware_tpu_torch.parallel.multihost import (
+            all_gather,
+            broadcast,
+            shard,
+        )
+        from steroscopic_hardware_tpu_torch.parallel.pg_dist import (
+            pad_edges,
+            pose_graph_optimize_sharded,
+        )
+
+        mesh, axis = self.pg_mesh, self._pg_axis
+        group = mesh.get_group(axis)
+        edges, meas, w = pad_edges(edges, meas, w, group.size())
+        sizes = all_gather(self._dev(np.array([[len(nodes), len(edges)]])),
+                           mesh, axis)
+        if not bool((sizes == sizes[0]).all()):
+            raise RuntimeError(
+                "the ranks of pg_mesh disagree on the pose graph's (nodes, "
+                f"edges): {sizes.tolist()}")
+        nodes, edges, meas, w = (broadcast(self._dev(a), group)
+                                 for a in (nodes, edges, meas, w))
+        return pose_graph_optimize_sharded(
+            nodes, shard(edges, mesh, axis), shard(meas, mesh, axis),
+            shard(w, mesh, axis), mesh=mesh, iters=10, axis_name=axis)
 
     def _refine_window(self):
         # snapshot the window (the frame thread pops / appends it
@@ -1251,8 +1306,7 @@ def _edge_r_J(xi_i, xi_j, xi_m):
 def pose_graph_optimize(xi_nodes, edges_ij, xi_meas, weights, *,
                         iters: int = 15, damping: float = 1e-4,
                         fix_first: bool = True, cg_iters: int = 100,
-                        cg_tol: float = 1e-8, axis_name: str | None = None,
-                        n_fixed=None):
+                        cg_tol: float = 1e-8, group=None, n_fixed=None):
     """Gauss-Newton pose-graph optimization, block-sparse.
 
     Args:
@@ -1285,11 +1339,16 @@ def pose_graph_optimize(xi_nodes, edges_ij, xi_meas, weights, *,
     wait per eight iterations instead of one per iteration, and no
     launches past convergence beyond the last eight.
 
-    ``axis_name`` (the edge-sharded, multi-process solve) is not ported
-    and raises.
+    ``group`` (a ``torch.distributed`` process group, the counterpart of
+    the JAX ``axis_name``): the edge arrays are this rank's block of the
+    edges, and every edge sum (the gradient, the preconditioner, each CG
+    product and the cost) is all-reduced over the group. The scatters'
+    float64 sums are reduced before they are rounded to float32, so the
+    twists are the single-process solve's bit for bit; the cost, a float32
+    sum over the edges, is summed in another order. Every rank reads the
+    CG's exit test from the same reduced values, so the ranks stay in
+    step.
     """
-    if axis_name is not None:
-        raise _not_ported("pose_graph_optimize(axis_name=...)")
     dev, f32 = xi_nodes.device, torch.float32
     M = xi_nodes.shape[0]
     ei, ej = edges_ij[:, 0].long(), edges_ij[:, 1].long()
@@ -1307,25 +1366,36 @@ def pose_graph_optimize(xi_nodes, edges_ij, xi_meas, weights, *,
     w = weights[:, None]
 
     def scatter(a, b):
-        """(M, ...) sum of a at the edges' first nodes and b at their
-        second."""
+        """(M, ...) float64 sum of a at the edges' first nodes and b at
+        their second."""
         out = torch.zeros((M,) + a.shape[1:], dtype=torch.float64,
                           device=dev)
-        return out.index_add_(0, ei, a.double()).index_add_(
-            0, ej, b.double()).to(f32)
+        return out.index_add_(0, ei, a.double()).index_add_(0, ej,
+                                                            b.double())
+
+    def esum(*xs):
+        """float32 of float64 edge sums, summed over the group first."""
+        if group is not None:
+            xs = all_reduce(xs, group)
+        return [x.to(f32) for x in xs]
 
     xi_all = xi_nodes
     costs = []
     for _ in range(iters):
         r, Ji, Jj = _edge_r_J(xi_all[ei], xi_all[ej], xi_meas)
         rw = r * w
+        cost = (r**2 * w).sum()
         g = scatter(torch.einsum("eab,ea->eb", Ji, rw),
-                    torch.einsum("eab,ea->eb", Jj, rw)) * m
+                    torch.einsum("eab,ea->eb", Jj, rw))
         # block-Jacobi preconditioner: per-node 6 x 6 diagonal blocks;
         # fixed / padded dofs act as identity rows
         diag = scatter(torch.einsum("eab,eac->ebc", Ji, Ji * w[..., None]),
-                       torch.einsum("eab,eac->ebc", Jj, Jj * w[..., None])
-                       ) + damping * eye6
+                       torch.einsum("eab,eac->ebc", Jj, Jj * w[..., None]))
+        g, diag = esum(g, diag)
+        if group is not None:
+            (cost,) = all_reduce([cost], group)
+        g = g * m
+        diag = diag + damping * eye6
         diag = diag * mm + (eye6 - eye6 * mm)
         diag_inv = torch.linalg.inv(diag)
 
@@ -1333,8 +1403,9 @@ def pose_graph_optimize(xi_nodes, edges_ij, xi_meas, weights, *,
             vm = v * m
             s = (torch.einsum("eab,eb->ea", Ji, vm[ei])
                  + torch.einsum("eab,eb->ea", Jj, vm[ej])) * w
-            out = scatter(torch.einsum("eab,ea->eb", Ji, s),
-                          torch.einsum("eab,ea->eb", Jj, s)) + damping * vm
+            (out,) = esum(scatter(torch.einsum("eab,ea->eb", Ji, s),
+                                  torch.einsum("eab,ea->eb", Jj, s)))
+            out = out + damping * vm
             return out * m + (v - vm)
 
         def precond(v):
@@ -1369,7 +1440,7 @@ def pose_graph_optimize(xi_nodes, edges_ij, xi_meas, weights, *,
         # fully frozen nodes pass through bit for bit (retract(0, x) is a
         # log(exp(x)) round trip)
         xi_new = torch.where(frozen, xi_all, xi_new)
-        costs.append((r**2 * w).sum())
+        costs.append(cost)
         xi_all = xi_new
     return xi_all, torch.stack(costs)
 

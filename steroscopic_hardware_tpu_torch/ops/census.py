@@ -48,22 +48,27 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cost_volume(cl: torch.Tensor, cr: torch.Tensor, max_disparity: int,
-                 axis: int) -> torch.Tensor:
+                 axis: int, x0: int = 0,
+                 width: int | None = None) -> torch.Tensor:
     """(D, *codes.shape) uint8 Hamming costs of codes whose disparity
-    shift runs along ``axis`` (of the codes): out[d] at position x along
-    ``axis`` compares cl[x] with cr[x - d], 24 where x < d."""
-    n = cl.shape[axis]
-    out = torch.empty((max_disparity + 1, *cl.shape), dtype=torch.uint8,
+    shift runs along ``axis`` (of the codes), over the positions x in
+    [x0, x0 + width) of that axis (all of them by default): out[d] at x
+    compares cl[x] with cr[x - d], 24 where x < d."""
+    end = cl.shape[axis] if width is None else x0 + width
+    shape = list(cl.shape)
+    shape[axis] = end - x0
+    out = torch.empty((max_disparity + 1, *shape), dtype=torch.uint8,
                       device=cl.device)
     for d in range(max_disparity + 1):
         o = out[d]
-        if d >= n:
+        lo = max(x0, d)  # the first position with a valid x - d
+        if lo >= end:
             o.fill_(24)
             continue
-        valid = o.narrow(axis, d, n - d)
-        valid.copy_(popcount32(cl.narrow(axis, d, n - d)
-                               ^ cr.narrow(axis, 0, n - d)))
-        o.narrow(axis, 0, d).fill_(24)
+        valid = o.narrow(axis, lo - x0, end - lo)
+        valid.copy_(popcount32(cl.narrow(axis, lo, end - lo)
+                               ^ cr.narrow(axis, lo - d, end - lo)))
+        o.narrow(axis, 0, lo - x0).fill_(24)
     return out
 
 

@@ -154,9 +154,3 @@ def test_residuals_and_twist_from_equal_jax(rng):
         ba._twist_from(_t(xi), _t(ref)).numpy(),
         np.asarray(jax.jit(jba._twist_from)(jnp.asarray(xi),
                                             jnp.asarray(ref))), atol=1e-6)
-
-
-def test_axis_name_is_not_ported(rng):
-    jprob, *_ = _ba_problem(rng, M=2, N=8)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ba.ba_solve(_port_problem(jprob), iters=1, axis_name="rows")

@@ -48,3 +48,20 @@ def test_cost_volumes_exact(name, shape, maxd):
                                 torch.from_numpy(right), max_disparity=maxd)
     assert got.dtype == torch.uint8
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("x0,width", [(0, 10), (10, 10), (30, 10), (5, 1),
+                                      (0, 40)])
+def test_cost_volume_band_is_the_volume_cut(x0, width):
+    """A band [x0, x0 + width) of the disparity axis (the sharded SGM's
+    W-band) is that slice of the whole volume, bit for bit, also where
+    the band starts before maxD."""
+    left, right = _pair(3, (24, 40))
+    cl, cr = (census.census5x5(torch.from_numpy(a).T) for a in (left, right))
+    want = census._cost_volume(cl, cr, 16, axis=0)
+    got = census._cost_volume(cl, cr, 16, axis=0, x0=x0, width=width)
+    assert torch.equal(got, want[:, x0:x0 + width])
+    want_t = census.census_cost_volume_T(torch.from_numpy(left),
+                                         torch.from_numpy(right),
+                                         max_disparity=16)
+    assert torch.equal(want, want_t)

@@ -8,6 +8,7 @@ This file imports no jax and uses no conftest fixture, so the tests marked
 ``torch.cuda.is_available()`` is False they skip.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -80,6 +81,42 @@ def test_port_never_imports_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "foreign modules: []" in proc.stdout, proc.stdout
+
+
+_BLOCK_JAX = r"""
+import sys
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "steroscopic_hardware_tpu"):
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def test_parallel_ranks_never_import_jax(tmp_path):
+    """``python -m steroscopic_hardware_tpu_torch.parallel --world 2
+    --device cpu`` with jax and the JAX package made unimportable in the
+    launcher and in every rank (a ``sitecustomize`` on the PYTHONPATH,
+    which spawned ranks inherit): the dry run still runs and agrees."""
+    (tmp_path / "sitecustomize.py").write_text(_BLOCK_JAX)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tmp_path), REPO, env.get("PYTHONPATH", "")])
+    blocked = subprocess.run([sys.executable, "-c", "import jax"], env=env,
+                             capture_output=True, text=True, timeout=60)
+    assert "is blocked in this process" in blocked.stderr, blocked.stderr
+    proc = subprocess.run(
+        [sys.executable, "-m", "steroscopic_hardware_tpu_torch.parallel",
+         "--world", "2", "--device", "cpu"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["ok"] and line["world"] == 2, line
 
 
 def _no_cuda():
@@ -276,6 +313,31 @@ def test_sad_library_refuses_plans_it_has_not_compiled(cuda):
                           32, 5, 16, costs, kv, th, ds, stream) != 0
     assert lib.sad_wta(L.data_ptr(), R.data_ptr(), out.data_ptr(), 512, 512,
                        1, 16, 32, 5, 16, 8, 8, 2, stream) == 0
+
+
+@pytest.mark.gpu
+def test_parallel_ranks_launch_the_kernels(cuda):
+    """Two gloo ranks on the card (``parallel.dryrun.launch_cases``): the
+    sharded SAD and SGM gathered equal one process bit for bit, and each
+    rank launched sad_wta once, and sgm_transpose_add once, sgm_aggregate
+    twice and sgm_epilogue once, for its frame."""
+    from steroscopic_hardware_tpu_torch.parallel import dryrun
+
+    left, right = (a.numpy() for a in _pair(11, (96, 200)))
+    cases = [("sad", dict(kind="sad", left=left, right=right, block_size=9,
+                          max_disparity=32)),
+             ("sgm", dict(kind="sgm", left=left, right=right,
+                          max_disparity=32))]
+    got = dryrun.launch_cases(cases, 2, backend="gloo", device="cuda")
+    want = dryrun.single_rank(cases, cuda)
+    expect = {"sad": {"sad_wta": 1},
+              "sgm": {"sgm_transpose_add": 1, "sgm_aggregate": 2,
+                      "sgm_epilogue": 1}}
+    for name, launches in expect.items():
+        np.testing.assert_array_equal(got[name]["disp"], want[name]["disp"])
+        for rank in got[name]["ranks"]:
+            assert {k: v for k, v in rank["launches"].items() if v} \
+                == launches, rank
 
 
 @pytest.mark.gpu

@@ -141,8 +141,3 @@ def test_pose_graph_sums_do_not_depend_on_edge_order():
     # the costs' own sum over the edges is float32
     np.testing.assert_allclose(costs_r, costs, rtol=1e-6)
     assert costs[-1] < costs[0]
-
-
-def test_pose_graph_axis_name_is_not_ported(cases):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run(cases["args"], dict(iters=1, axis_name="rows"))

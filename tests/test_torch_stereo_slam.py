@@ -25,12 +25,18 @@ module through the JAX ``StereoSLAM`` and the port's
   have nulled them): the fields are read once, and a closure lands though
   they are nulled mid-check;
 * ``positions(tail=)``, the fixed-lag pose graph inside the engine, the
-  backend warmup's count, culling and the not-ported ``pg_mesh``.
+  backend warmup's count, culling and the JAX rule for ``pg_mesh``'s
+  axes.
 """
 
+import re
+from types import SimpleNamespace
+
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from steroscopic_hardware_tpu.models import slam as jslam
 from steroscopic_hardware_tpu_torch.models import slam
@@ -290,7 +296,7 @@ def test_cull_history_keeps_loop_anchors():
     assert kept[-18:] == list(range(12, 30))  # the newest 2 * window + 16
 
 
-def test_warmup_backend_and_not_ported_mesh():
+def test_warmup_backend_and_pg_mesh_axes():
     engine = StereoSLAM(CAM, device="cpu", loop_closure=True,
                         max_keypoints=32)
     n = engine.warmup_backend()
@@ -299,5 +305,16 @@ def test_warmup_backend_and_not_ported_mesh():
     engine = StereoSLAM(CAM, device="cpu", pg_horizon=4, max_keypoints=32)
     assert engine.warmup_backend() == 12  # + the n_fixed pose graph
     assert engine.warmup_backend(should_stop=lambda: True) == 0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StereoSLAM(CAM, device="cpu", pg_mesh=object())
+    # the JAX rule for pg_mesh's axes: one dim, or one named "rows" (the
+    # engine reads only the mesh's dim names until a loop closes)
+    for names, axis in ((("x",), "x"), (("batch", "rows"), "rows")):
+        mesh = SimpleNamespace(mesh_dim_names=names)
+        engine = StereoSLAM(CAM, device="cpu", pg_mesh=mesh, max_keypoints=4)
+        assert engine._pg_axis == axis
+    message = "pg_mesh must have a single axis (or one named 'rows')"
+    with pytest.raises(ValueError, match=re.escape(message)):
+        StereoSLAM(CAM, device="cpu", max_keypoints=4,
+                   pg_mesh=SimpleNamespace(mesh_dim_names=("a", "b")))
+    jmesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("a", "b"))
+    with pytest.raises(ValueError, match=re.escape(message)):
+        jslam.StereoSLAM(JCAM, pg_mesh=jmesh, max_keypoints=4)

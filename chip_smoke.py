@@ -3,8 +3,9 @@ H100, sm_90a): builds the SAD and SGM kernels from
 ``steroscopic_hardware_tpu_torch/csrc``, holds them to their plain torch
 versions, drives the live depth server in-process at 1920x1080 with both
 engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
-serves live SLAM, rectifies and serves a calibrated rig (``--calib``), and
-runs the multi-process tier over 2 and 4 ranks on the card.
+serves live SLAM, rectifies and serves a calibrated rig (``--calib``),
+runs the multi-process tier over 2 and 4 ranks on the card, and feeds the
+server from TCP and serial camera transports.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -120,7 +121,36 @@ exit code:
      phase 7's frames (a loop closed on each rank, the same keyframes,
      camera centres within 1 mm of phase 7's sync run); each case's
      seconds per rank and the bytes each rank sent through the halo and
-     the all_to_all (no speed is claimed: the ranks share one card).
+     the all_to_all (no speed is claimed: the ranks share one card);
+  10. live ingest at 1920x1080, each run an in-process ``build_app`` whose
+     sources are attached the way users attach them. 10t: two TCP
+     ``CameraEmitter``s cycle K = 4 seeded textured pairs (a pair a
+     INGEST_HOLD_S slot of the wall clock, so both sides change pairs
+     together) at 60 Hz in codec raw, range and lzma, and raw again with
+     --lr-check, attached through POST /left/configure and
+     /right/configure; 10s: the same frames raw from ``SerialEmitter``s on
+     two ptys, attached with --serial left=/dev/pts/N and /right/configure
+     device=... (raw 1080p: the range codec would not shrink the
+     noise-textured frames, its decode is slower than the line, and 20
+     raw frames still cross two ptys in seconds); 10d: one static pair over TCP with
+     and without --dedup-uploads; 10r: --rig b, four TCP emitters, a pair
+     per rig; 10g: --backend sgm d64 over raw TCP. Gates: every frame the
+     sources publish is byte-equal to an emitted one; each /stream/out
+     read (every 0.5 s of a window of >= 20 frames and >= 2 s) equals the
+     plain map of an emitted left and right, and one read at least a
+     pair's own (with --lr-check the plain LR-checked map; the rigs and
+     the static runs exactly their own pair's; SGM the plain chain's); the
+     launch counters show sad_wta (sad_lr with --lr-check) once per served
+     batch and nothing else, sgm_aggregate and sgm_transpose_add twice a
+     frame; the native frame parser loaded and parsed every stream; with
+     --dedup-uploads one batch and one launch for the one distinct pair
+     while dup_skipped grows, without it a launch per batch. Printed: per
+     codec the served fps, device busy, wire bytes and host decode ms per
+     frame and the parser; both rigs' fps in one window. 10k: ``python -m
+     steroscopic_hardware_tpu_torch.soak --minutes 1 --interval 5`` (a
+     server subprocess with --slam --loop-closure): no backend traceback,
+     no error, frames and poses grow at every sample; RSS and device
+     memory at the first and last sample.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -136,6 +166,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -2052,6 +2083,404 @@ def phase_parallel(card, left, right, slam_ref):
     return launches
 
 
+# -- phase 10: live ingest over TCP and serial --------------------------------
+
+INGEST_SHIFTS = (8, 16, 24, 32)  # the K = 4 seeded pairs, one shift each
+INGEST_HOLD_S = 3.0     # each pair holds this long on the emitters' shared
+#                         clock (an lzma frame takes ~0.7 s to encode)
+INGEST_FRAMES = 20      # served frames per run (N)
+INGEST_MIN_S = 2.0      # and at least this long a window
+INGEST_FPS = 60.0       # the emitters' rate
+INGEST_SAMPLE_S = 0.5   # /stream/out is read this often in a window
+INGEST_TIMEOUT = 120.0
+SOAK_SMOKE = ("--minutes", "1", "--interval", "5")
+
+
+def ingest_pairs():
+    """The K seeded 1080p textured pairs (``serve_probe.textured_pair``),
+    each with its own shift."""
+    from steroscopic_hardware_tpu_torch.serve_probe import textured_pair
+
+    return [textured_pair(SEED + 10 + k, H, W, shift=s)
+            for k, s in enumerate(INGEST_SHIFTS)]
+
+
+def _cycled(pairs, side):
+    """An emitter's frame function: pair k is the slot of the shared wall
+    clock, so the two sides change pairs at the same moments."""
+    return lambda n: pairs[int(time.time() / INGEST_HOLD_S) % len(pairs)][side]
+
+
+def _check_published(bus, emitted):
+    """Wrap ``bus.publish``: each frame published to a slot of ``emitted``
+    (slot -> the frames its camera sends) is counted as byte-equal to one
+    of them, or not. Returns {slot: [equal, not equal]}."""
+    index = {slot: {zlib.crc32(f): f for f in frames}
+             for slot, frames in emitted.items()}
+    counts = {slot: [0, 0] for slot in emitted}
+    publish = bus.publish
+
+    def checked(name, data, source=""):
+        if name in index:
+            f = index[name].get(zlib.crc32(np.ascontiguousarray(data)))
+            ok = f is not None and np.array_equal(f, data)
+            counts[name][0 if ok else 1] += 1
+        return publish(name, data, source=source)
+
+    bus.publish = checked
+    return counts
+
+
+def _plain_maps(pairs, lr):
+    """{(i, j): the plain b16 d64 map of left i and right j} on the card:
+    while the two sides change pairs, a served pair may mix them."""
+    from steroscopic_hardware_tpu_torch.ops import sad
+    from steroscopic_hardware_tpu_torch.ops.lr_check import check_from_raw
+
+    out = {}
+    for i, (left, _) in enumerate(pairs):
+        for j, (_, right) in enumerate(pairs):
+            L, R = to_cuda(left, right)
+            if lr:
+                dL, dR = sad.disparity_raw_lr_plain(L, R, block_size=16,
+                                                    max_disparity=64)
+                m = check_from_raw(dL, dR, W, 64)[0]
+            else:
+                m = sad.disparity_plain(L, R, block_size=16, max_disparity=64)
+            out[i, j] = m.cpu().numpy()
+    return out
+
+
+def _ingest_run(tag, argv, feed, emitted, n=INGEST_FRAMES, rig=None):
+    """Build the app from zeroed launch counters, check every frame the
+    sources publish against ``emitted``, attach them with ``feed(base)``
+    (which returns what to close), serve ``n`` frames over at least
+    INGEST_MIN_S, read /stream/out (and the rig's) every INGEST_SAMPLE_S.
+    Returns a dict of the run's numbers, samples and launches."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.__main__ import build_app
+    from steroscopic_hardware_tpu_torch.io.png import read_png
+
+    outs = ["out"] + ([f"{rig}.out"] if rig else [])
+    _kernels.reset_launches()
+    app = build_app(argv)
+    counts = _check_published(app.manager.bus, emitted)
+    app.start()
+    closers, samples = [], {o: [] for o in outs}
+    try:
+        base = app.url
+        closers = feed(base)
+        _wait_frames(base, 1, timeout=INGEST_TIMEOUT)
+        m0, t0 = json.loads(_get(base + "/metrics")), time.time()
+        t_sample = 0.0
+        while True:
+            m = json.loads(_get(base + "/metrics"))
+            p = m["pipeline"]
+            if p["errors"] or (rig and m["rigs"][rig]["errors"]):
+                fail(f"{tag}: pipeline errors {m}")
+            elapsed = time.time() - t0
+            if time.time() - t_sample >= INGEST_SAMPLE_S:
+                t_sample = time.time()
+                for o in outs:
+                    samples[o].append(read_png(_get(f"{base}/stream/{o}")))
+            if (p["frames"] - m0["pipeline"]["frames"] >= n
+                    and elapsed >= INGEST_MIN_S):
+                break
+            if elapsed > INGEST_TIMEOUT:
+                fail(f"{tag}: {p['frames'] - m0['pipeline']['frames']} "
+                     f"frames of {n} in {INGEST_TIMEOUT:.0f} s: {m}")
+            time.sleep(0.05)
+        parsers = {slot: type(app.manager.get_source(slot).parser).__name__
+                   for slot in emitted}
+    finally:
+        app.shutdown()
+        for c in closers:
+            c.close()
+    pipes = {"out": app.server.ctx.pipeline}
+    if rig:
+        pipes[f"{rig}.out"] = app.server.ctx.rigs[rig]
+    for pp in pipes.values():
+        # shutdown waits 5 s for a pipeline thread; an SGM batch from
+        # live cameras can take longer, and its launches and frames must
+        # both be counted before they are compared
+        pp.close(timeout=INGEST_TIMEOUT)
+        if pp._thread.is_alive():
+            fail(f"{tag}: the pipeline thread did not stop")
+    launches = dict(_kernels.launches)
+    if any(bad or not good for good, bad in counts.values()):
+        fail(f"{tag}: published frames [equal, not] to an emitted one: "
+             f"{counts}")
+    fps = {"out": (p["frames"] - m0["pipeline"]["frames"]) / elapsed}
+    # the rate each source published at in the window
+    src_fps = {slot: (m["sources"][slot]["frames"]
+                      - m0["sources"][slot]["frames"]) / elapsed
+               for slot in emitted}
+    busy = {"out": (p["device_s"] - m0["pipeline"]["device_s"]) / elapsed}
+    if rig:
+        r0, r1 = m0["rigs"][rig], m["rigs"][rig]
+        fps[f"{rig}.out"] = (r1["frames"] - r0["frames"]) / elapsed
+        busy[f"{rig}.out"] = (r1["device_s"] - r0["device_s"]) / elapsed
+    return dict(fps=fps, busy=busy, samples=samples, parsers=parsers, m0=m0,
+                src_fps=src_fps,
+                launches=launches, pipes=pipes, counts=counts,
+                batches=sum(pp.batches for pp in pipes.values()),
+                frames=sum(pp.frames for pp in pipes.values()))
+
+
+def _match_samples(tag, samples, maps, want=None):
+    """Every sample equals some (i, j) plain map; one at least a pair's
+    own (i == j), or ``want`` when given. Returns the pairs seen."""
+    seen = []
+    for got in samples:
+        hit = next((k for k, v in maps.items()
+                    if got.shape == v.shape and np.array_equal(got, v)), None)
+        if hit is None:
+            fail(f"{tag}: /stream/out equals the plain map of no pair of the "
+                 f"emitted frames")
+        seen.append(hit)
+    if want is not None:
+        if any(s != want for s in seen):
+            fail(f"{tag}: /stream/out served pairs {seen}, not {want}")
+    elif not any(i == j for i, j in seen):
+        fail(f"{tag}: no /stream/out read served one pair's own frames: "
+             f"{seen}")
+    return seen
+
+
+def _rates(run):
+    return ", ".join(f"{k} {v:.2f} fps" for k, v in run["src_fps"].items())
+
+
+def _decode_ms(frame, codec):
+    """Host ms to parse and decode one encoded frame fed in 64 KiB reads
+    (the sources' recv size), the median of 3, and its wire bytes."""
+    from steroscopic_hardware_tpu_torch.runtime import wire
+
+    blob = wire.encode_frame(frame, codec=codec)
+    ts = []
+    for _ in range(3):
+        parser = wire.make_parser()
+        t0 = time.perf_counter()
+        got = []
+        for i in range(0, len(blob), 65536):
+            got += parser.feed(blob[i:i + 65536])
+        ts.append((time.perf_counter() - t0) * 1e3)
+        if len(got) != 1 or not np.array_equal(got[0], frame):
+            fail(f"codec {codec}: the parser did not return the frame")
+    return float(np.median(ts)), len(blob)
+
+
+def _tcp_feed(frames, codec):
+    """feed(base): one CameraEmitter per slot of ``frames`` (slot -> a
+    frame or a frame function), attached through /<slot>/configure."""
+    from steroscopic_hardware_tpu_torch.serve_probe import attach_emitters
+
+    return lambda base: attach_emitters(base, frames, codec, INGEST_FPS)
+
+
+def phase_ingest(card):
+    """Phase 10: the ingest path at 1080p. 10t: TCP CameraEmitters in codec
+    raw, range and lzma (and raw with --lr-check) attached through
+    /left/configure and /right/configure; 10s: SerialEmitters on two ptys,
+    --serial left=... and /right/configure device=...; 10d: a static TCP
+    pair with and without --dedup-uploads; 10r: two rigs (--rig b) on four
+    TCP emitters; 10g: --backend sgm over raw TCP; 10k: the soak tool for
+    one minute on --slam --loop-closure."""
+    from steroscopic_hardware_tpu_torch._native import get_lib
+    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
+    from steroscopic_hardware_tpu_torch.runtime import wire
+    from steroscopic_hardware_tpu_torch.runtime.emitter import SerialEmitter
+
+    if get_lib() is None:
+        fail("phase 10: the native library (native/, make and g++) did not "
+             "build: the sources would parse in Python")
+    pairs = ingest_pairs()
+    maps = {lr: _plain_maps(pairs, lr) for lr in (False, True)}
+    lefts, rights = [p[0] for p in pairs], [p[1] for p in pairs]
+    cycled = {"left": _cycled(pairs, 0), "right": _cycled(pairs, 1)}
+    base_argv = ["--no-open", "--device", "cuda", "--port", "0"]
+    totals = {name: 0 for name in SOURCE}
+
+    def note(msg):
+        say(f"phase 10: {msg}")
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    def gate_launches(tag, run, kernel):
+        """``kernel`` launched once per served batch, no other kernel."""
+        nz = {k: v for k, v in run["launches"].items() if v}
+        want = {kernel: run["batches"]}
+        if nz != want:
+            fail(f"{tag}: launches {nz}, not {want} ({run['batches']} "
+                 f"batches, {run['frames']} frames)")
+
+    # 10t: TCP, each codec; raw again with --lr-check
+    for codec, lr in ((wire.CODEC_RAW, False), (wire.CODEC_RANGE, False),
+                      (wire.CODEC_LZMA, False), (wire.CODEC_RAW, True)):
+        tag = f"phase 10t codec {codec}" + (" --lr-check" if lr else "")
+        run = _ingest_run(tag, base_argv + (["--lr-check"] if lr else []),
+                          _tcp_feed(cycled, codec),
+                          {"left": lefts, "right": rights})
+        seen = _match_samples(tag, run["samples"]["out"], maps[lr])
+        gate_launches(tag, run, "sad_lr" if lr else "sad_wta")
+        if set(run["parsers"].values()) != {"NativeFrameParser"}:
+            fail(f"{tag}: the sources parsed with {run['parsers']}")
+        add(run["launches"])
+        dec = [_decode_ms(f, codec) for f in (lefts[0], rights[0])]
+        note(
+            f"10t codec {codec}{' --lr-check' if lr else ''}: served fps "
+            f"{run['fps']['out']:.2f} (sources {_rates(run)}), device busy "
+            f"{run['busy']['out']:.4f}, {run['frames']} frames in "
+            f"{run['batches']} batches, wire bytes per frame "
+            f"{np.mean([d[1] for d in dec]):.0f}, parser "
+            f"{run['parsers']['left']}, decode ms per frame "
+            f"{np.mean([d[0] for d in dec]):.2f}, published frames "
+            f"{sum(c[0] for c in run['counts'].values())} all emitted ones, "
+            f"/stream/out reads {len(seen)} (pairs {sorted(set(seen))})")
+
+    # 10s: serial over two ptys, raw 1080p
+    ptys = [os.openpty() for _ in range(2)]
+    paths = [os.ttyname(slave) for _, slave in ptys]
+    ems = []
+
+    def serial_feed(base):
+        for (master, _), side in zip(ptys, ("left", "right")):
+            ems.append(SerialEmitter(cycled[side], master,
+                                     fps=INGEST_FPS).start())
+        from steroscopic_hardware_tpu_torch.serve_probe import configure
+
+        configure(base, "right", {"device": paths[1], "baud": 921600})
+        return []
+
+    try:
+        run = _ingest_run("phase 10s", base_argv + [
+            "--serial", f"left={paths[0]}@921600"], serial_feed,
+            {"left": lefts, "right": rights})
+    finally:
+        for em in ems:
+            em.close()
+        for _, slave in ptys:
+            os.close(slave)
+    seen = _match_samples("phase 10s", run["samples"]["out"], maps[False])
+    gate_launches("phase 10s", run, "sad_wta")
+    if set(run["parsers"].values()) != {"NativeFrameParser"}:
+        fail(f"phase 10s: the sources parsed with {run['parsers']}")
+    add(run["launches"])
+    note(
+        f"10s serial (two ptys, raw 1080p): served fps "
+        f"{run['fps']['out']:.2f} (sources {_rates(run)}), {run['frames']} "
+        f"frames in {run['batches']} batches, parser "
+        f"{run['parsers']['left']}, "
+        f"published frames {sum(c[0] for c in run['counts'].values())} all "
+        f"emitted ones, /stream/out reads {len(seen)}")
+
+    # 10d: one static pair over TCP, with and without --dedup-uploads
+    static = {"left": lefts[0], "right": rights[0]}
+    emitted0 = {"left": [lefts[0]], "right": [rights[0]]}
+    for dedup in (True, False):
+        tag = f"phase 10d dedup {dedup}"
+        run = _ingest_run(tag, base_argv + (["--dedup-uploads"] if dedup
+                                            else []),
+                          _tcp_feed(static, wire.CODEC_RAW), emitted0,
+                          n=0 if dedup else INGEST_FRAMES)
+        _match_samples(tag, run["samples"]["out"], maps[False], want=(0, 0))
+        pipe = run["pipes"]["out"]
+        if dedup and not (pipe.dup_skipped
+                          > run["m0"]["pipeline"]["dup_skipped"]
+                          and pipe.dup_skipped >= INGEST_FRAMES
+                          and run["launches"]["sad_wta"] == 1
+                          and pipe.batches == 1):
+            fail(f"{tag}: dup_skipped {pipe.dup_skipped}, batches "
+                 f"{pipe.batches}, launches {run['launches']} (one distinct "
+                 f"pair: 1 launch)")
+        gate_launches(tag, run, "sad_wta")
+        if not dedup and run["batches"] < 2:
+            fail(f"{tag}: {run['batches']} batches")
+        add(run["launches"])
+        note(f"10d --dedup-uploads {dedup}: batches {pipe.batches}, "
+             f"dup_skipped {pipe.dup_skipped}, sad_wta "
+             f"{run['launches']['sad_wta']}")
+
+    # 10r: two rigs on four TCP emitters
+    rig_frames = {"left": lefts[0], "right": rights[0],
+                  "b.left": lefts[1], "b.right": rights[1]}
+    run = _ingest_run("phase 10r", base_argv + ["--rig", "b"],
+                      _tcp_feed(rig_frames, wire.CODEC_RAW),
+                      {k: [v] for k, v in rig_frames.items()}, rig="b")
+    _match_samples("phase 10r rig ''", run["samples"]["out"], maps[False],
+                   want=(0, 0))
+    _match_samples("phase 10r rig b", run["samples"]["b.out"], maps[False],
+                   want=(1, 1))
+    gate_launches("phase 10r", run, "sad_wta")
+    add(run["launches"])
+    note(
+        f"10r two rigs (four raw TCP emitters): fps out "
+        f"{run['fps']['out']:.2f} and b.out {run['fps']['b.out']:.2f} in one "
+        f"window, device busy {run['busy']['out']:.4f} and "
+        f"{run['busy']['b.out']:.4f} (one stream: each spans the other's "
+        f"work), batches {[p.batches for p in run['pipes'].values()]}, "
+        f"sad_wta {run['launches']['sad_wta']}")
+
+    # 10g: --backend sgm over raw TCP, one static pair
+    L, R = to_cuda(lefts[0], rights[0])
+    with _plain_chain():
+        want = sgm_one(L, R, max_disparity=64, p1=1.0, p2=8.0, subpixel=True,
+                       lr=False, threshold=1.0).cpu().numpy()
+    del L, R
+    run = _ingest_run("phase 10g", base_argv + ["--backend", "sgm"],
+                      _tcp_feed(static, wire.CODEC_RAW), emitted0)
+    _match_samples("phase 10g", run["samples"]["out"], {(0, 0): want},
+                   want=(0, 0))
+    nz = {k: v for k, v in run["launches"].items() if v}
+    if nz != {"sgm_aggregate": 2 * run["frames"],
+              "sgm_transpose_add": 2 * run["frames"]}:
+        fail(f"phase 10g: launches {nz} for {run['frames']} frames (2 and 2 "
+             f"a frame)")
+    add(run["launches"])
+    note(f"10g --backend sgm d64 over raw TCP: served fps "
+         f"{run['fps']['out']:.2f} (sources {_rates(run)}), device busy "
+         f"{run['busy']['out']:.4f}, {run['frames']} frames in "
+         f"{run['batches']} batches, == plain chain, launches {nz}")
+
+    # 10k: the soak tool, one minute on --slam --loop-closure
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "soak.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "steroscopic_hardware_tpu_torch.soak",
+             *SOAK_SMOKE, "--json", out], capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0 or not os.path.exists(out):
+            fail(f"phase 10k: soak exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            soak = json.load(f)
+    summ, series = soak["summary"], soak["series"]
+    grow = all(b["depth_frames"] > a["depth_frames"]
+               and b["slam_poses"] > a["slam_poses"]
+               for a, b in zip(series, series[1:]))
+    if not (series and summ["sample_errors"] == 0 and grow
+            and summ["server_tracebacks"] == 0
+            and all(s["slam_errors"] == 0 and s["pipeline_errors"] == 0
+                    for s in series)):
+        fail(f"phase 10k: soak summary {json.dumps(summ)[:1500]}")
+    first, last = summ["first"], summ["last"]
+    note(
+        f"10k soak {SOAK_SMOKE[1]} min {summ['size']}: {len(series)} samples, "
+        f"frames and poses grew at each, RSS {first['rss_mb']} -> "
+        f"{last['rss_mb']} MB, device memory {first['gpu_mem_mb']} -> "
+        f"{last['gpu_mem_mb']} MiB (card used {first['card_mem_used_mb']} "
+        f"-> {last['card_mem_used_mb']}), pose fps "
+        f"{[s['slam_pose_fps_window'] for s in series]}, loops closed "
+        f"{last['loops_closed']}, backend_pending max "
+        f"{summ['backend_pending_max']}")
+    say(f"phase 10 ok: ingest over TCP (raw, range, lzma), serial, dedup, two "
+        f"rigs and SGM == plain, every served batch through the kernels; "
+        f"launches {totals} ({card})")
+    return totals
+
+
 def sad_bound(name, maxd=64, px=H * W):
     """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
     given): two uint8 images in, the uint8 map (sad_wta), two int32 maps
@@ -2104,6 +2533,8 @@ def main() -> int:
     rectify = timed("8", phase_rectify, card, left, right)
     _free()
     par = timed("9", phase_parallel, card, left, right, slam_ref)
+    _free()
+    ingest = timed("10", phase_ingest, card)
     # phase 7's launches on the SLAM main path: the sync run, the server;
     # phase 8's on the calibrated one: the served SAD, LR and SGM runs and
     # live SLAM
@@ -2120,6 +2551,11 @@ def main() -> int:
     for name in ("sgm_aggregate", "sgm_transpose_add"):
         sgm_launches[name] += par[name]
     fused_launches["sgm_epilogue"] += par["sgm_epilogue"]
+    # phase 10's: the batches served from TCP and serial ingest
+    launches["sad_wta"] += ingest["sad_wta"]
+    launches["sad_lr"] += ingest["sad_lr"]
+    for name in ("sgm_aggregate", "sgm_transpose_add"):
+        sgm_launches[name] += ingest[name]
     say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):

@@ -152,7 +152,8 @@ class App:
 
     @property
     def url(self) -> str:
-        return f"http://{self.args.host}:{self.server.port}"
+        scheme = "https" if self.server.tls else "http"
+        return f"{scheme}://{self.args.host}:{self.server.port}"
 
     def start(self) -> "App":
         self.server.start()
@@ -239,6 +240,7 @@ def build_app(argv=None) -> App:
             manager.bus, make_matcher(), lr_check=args.lr_check,
             rectifier=rectifier, preview_scale=args.preview_scale,
             host_colorize=args.host_colorize,
+            dedup_uploads=args.dedup_uploads,
             left_slot=f"{name}.left", right_slot=f"{name}.right",
             out_slot=f"{name}.out", depth_slot=f"{name}.depth",
         )

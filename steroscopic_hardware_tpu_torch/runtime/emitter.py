@@ -13,6 +13,7 @@ so that the port imports nothing of the JAX package.
 from __future__ import annotations
 
 import os
+import select
 import socket
 import threading
 
@@ -47,6 +48,8 @@ class SerialEmitter:
     ``runtime.sources.SerialSource``. Tests attach it to the master end
     of ``os.openpty()`` for a hardware-free full-protocol drive."""
 
+    POLL_S = 0.1  # select timeout: how soon the loop sees close()
+
     def __init__(self, frame_fn, fd: int, codec: int = wire.CODEC_RAW,
                  fps: float = 30.0, max_frames: int | None = None):
         self.frame_fn = frame_fn
@@ -63,55 +66,80 @@ class SerialEmitter:
         self._thread.start()
         return self
 
-    def close(self):
+    def close(self, timeout: float = 5.0):
+        """Stop the loop, wait for its thread, then close the descriptor:
+        the thread waits in ``select`` with a short timeout and never
+        blocks in a read or a write, so it ends within one poll and no
+        thread touches the descriptor number after it is closed (the JAX
+        package's copy closes it under a writer that may be blocked on a
+        full line, and the number may by then belong to another file)."""
         self._closed.set()
+        if self._thread.ident is not None:
+            self._thread.join(timeout)
         try:
             os.close(self.fd)
         except OSError:
             pass
 
-    def _read_nonblock(self, n: int) -> bytes:
+    def _wait(self, write: bool) -> bool:
+        """Poll the descriptor until it is readable (writable); False once
+        closed."""
+        while not self._closed.is_set():
+            ready = select.select([] if write else [self.fd],
+                                  [self.fd] if write else [], [], self.POLL_S)
+            if ready[0] or ready[1]:
+                return True
+        return False
+
+    def _read(self, n: int) -> bytes:
         try:
             return os.read(self.fd, n)
         except BlockingIOError:
             return b""
 
+    def _write_all(self, blob: bytes) -> bool:
+        off = 0
+        while off < len(blob):
+            if not self._wait(write=True):
+                return False
+            try:
+                off += os.write(self.fd, blob[off:])
+            except BlockingIOError:
+                pass
+        return True
+
     def _serve(self):
         import time
 
         try:
-            # blocking scan for the start request: slide a 2-byte window
-            # over the line until it reads START_SEQ, so leading noise
-            # bytes are skipped as the firmware skips them (the JAX
-            # package's copy gives up after the first two bytes)
+            os.set_blocking(self.fd, False)
+            # scan for the start request: slide a 2-byte window over the
+            # line until it reads START_SEQ, so leading noise bytes are
+            # skipped as the firmware skips them (the JAX package's copy
+            # gives up after the first two bytes)
             start = b""
-            while not self._closed.is_set():
-                chunk = os.read(self.fd, 1)
+            while start != wire.START_SEQ:
+                if not self._wait(write=False):
+                    return
+                chunk = self._read(1)
                 if not chunk:
                     return
                 start = (start + chunk)[-2:]
-                if start == wire.START_SEQ:
-                    break
-            if start != wire.START_SEQ:
+            if not self._write_all(wire.ACK):
                 return
-            os.write(self.fd, wire.ACK)
-            os.set_blocking(self.fd, False)
             n = 0
             period = 1.0 / self.fps
             ctrl = b""
             while not self._closed.is_set():
                 if self.max_frames is not None and n >= self.max_frames:
                     break
-                ctrl = (ctrl + self._read_nonblock(16))[-4:]
+                ctrl = (ctrl + self._read(16))[-4:]
                 if wire.END_SEQ in ctrl:
                     break
                 frame = np.asarray(self.frame_fn(n), dtype=np.uint8)
-                blob = wire.encode_frame(frame, codec=self.codec)
-                os.set_blocking(self.fd, True)
-                off = 0
-                while off < len(blob):
-                    off += os.write(self.fd, blob[off:])
-                os.set_blocking(self.fd, False)
+                if not self._write_all(wire.encode_frame(frame,
+                                                         codec=self.codec)):
+                    break
                 self.frames_sent = n = n + 1
                 time.sleep(period)
         except OSError:

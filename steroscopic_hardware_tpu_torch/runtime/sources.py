@@ -204,6 +204,9 @@ class SerialSource(BaseSource):
         self.baud = baud
         self.frame_timeout = frame_timeout
         self.reconnects = 0
+        # the current connection's parser: a NativeFrameParser, or the
+        # Python FrameParser where the native library did not build
+        self.parser = None
 
     @staticmethod
     def _configure_tty(fd: int, baud: int) -> None:
@@ -247,7 +250,7 @@ class SerialSource(BaseSource):
                 if ack != wire.ACK:
                     raise ConnectionError(f"bad ack {ack!r}")
                 backoff = 0.01
-                parser = wire.make_parser()
+                parser = self.parser = wire.make_parser()
                 last_frame = time.time()
                 while not self._closed.is_set():
                     data = os.read(fd, 65536)
@@ -291,6 +294,9 @@ class TcpSource(BaseSource):
         self.port = port
         self.frame_timeout = frame_timeout  # serial.go:242 (4 min)
         self.reconnects = 0
+        # the current connection's parser: a NativeFrameParser, or the
+        # Python FrameParser where the native library did not build
+        self.parser = None
 
     def _run(self):
         backoff = 0.01
@@ -307,7 +313,7 @@ class TcpSource(BaseSource):
                     if ack != wire.ACK:
                         raise ConnectionError(f"bad ack {ack!r}")
                     backoff = 0.01
-                    parser = wire.make_parser()
+                    parser = self.parser = wire.make_parser()
                     while not self._closed.is_set():
                         data = sock.recv(65536)
                         if not data:

@@ -62,6 +62,24 @@ for flags in (["--backend", "auto"], ["--backend", "sgm"], ["--slam"]):
             assert json.load(r) == {"blockSize": 16, "maxDisparity": 64}
     finally:
         app.shutdown()
+# the ingest path: two TCP emitters attached through /{left,right}/configure
+import time
+from steroscopic_hardware_tpu_torch.serve_probe import attach_emitters
+app = build_app(["--device", "cpu", "--port", "0", "--no-open"]).start()
+emitters = attach_emitters(app.url, {"left": left, "right": right}, 2, 60.0)
+try:
+    t0 = time.time()
+    while app.server.ctx.pipeline.frames < 2:
+        assert time.time() - t0 < 60, "no frames from the TCP sources"
+        time.sleep(0.05)
+finally:
+    app.shutdown()
+    for em in emitters:
+        em.close()
+from steroscopic_hardware_tpu_torch.examples import run_stream
+assert run_stream.main(["--synthetic", "--size", "16", "64", "--device",
+                        "cpu", "-n", "2", "--block", "5", "--disp",
+                        "16"]) == 0
 print("foreign modules:", sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or (
@@ -70,10 +88,12 @@ print("foreign modules:", sorted(
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, a CPU SAD and SGM serve step, a two-frame
-    CPU visual odometry run, a three-frame SLAM run with loop closure and
-    the server with both backends (and with --slam) load neither jax nor
-    any module of the JAX package."""
+    """Every module of the port (the examples, ``soak`` and
+    ``utils.timing`` among them), a CPU SAD and SGM serve step, a two-frame
+    CPU visual odometry run, a three-frame SLAM run with loop closure, the
+    server with both backends (and with --slam), the server fed by two TCP
+    emitters in the lzma codec and the ``run_stream`` example load neither
+    jax nor any module of the JAX package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
@@ -921,3 +941,96 @@ def test_slam_server_warms_in_a_fresh_process(cuda, tmp_path):
                          text=True, timeout=300)
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-3000:]
     assert "warmup failed" not in res.stderr, res.stderr[-3000:]
+
+
+_TWO_RIGS_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+from steroscopic_hardware_tpu_torch import _kernels
+from steroscopic_hardware_tpu_torch.__main__ import build_app
+from steroscopic_hardware_tpu_torch.io.png import write_png
+from steroscopic_hardware_tpu_torch.ops import sad
+
+rng = np.random.default_rng(0)
+pairs = []
+for k, shift in enumerate((4, 9)):
+    left = rng.integers(0, 256, (240, 320), dtype=np.uint8)
+    right = np.roll(left, -shift, axis=1)
+    for side, img in (("l", left), ("r", right)):
+        write_png(f"{sys.argv[1]}/{side}{k}.png", img)
+    pairs.append((left, right))
+d = sys.argv[1]
+app = build_app(["--left", f"{d}/l0.png", "--right", f"{d}/r0.png",
+                 "--rig", f"b={d}/l1.png,{d}/r1.png", "--fps", "60",
+                 "--port", "0", "--no-open"]).start()
+try:
+    pipes = (app.server.ctx.pipeline, app.server.ctx.rigs["b"])
+    t0 = time.time()
+    while min(p.frames for p in pipes) < 10:
+        assert time.time() - t0 < 180, [p.metrics() for p in pipes]
+        time.sleep(0.05)
+finally:
+    app.shutdown()
+bus = app.manager.bus
+for slot, (left, right) in zip(("out", "b.out"), pairs):
+    want = sad.disparity_plain(*(torch.from_numpy(a).cuda()
+                                 for a in (left, right)),
+                               block_size=16, max_disparity=64).cpu().numpy()
+    assert np.array_equal(bus.latest(slot).data, want), slot
+print(json.dumps({"errors": [p.errors for p in pipes],
+                  "batches": sum(p.batches for p in pipes),
+                  "launches": _kernels.launches}))
+"""
+
+
+@pytest.mark.gpu
+def test_two_rigs_first_launches_in_a_fresh_process(cuda, tmp_path):
+    """A fresh process serving two rigs: both pipeline threads make their
+    first kernel launches at once (the library load and ``sad_init`` under
+    ``_kernels``' lock); no error, each rig's map equal to the plain one,
+    one sad_wta launch per batch of either rig."""
+    res = subprocess.run([sys.executable, "-c", _TWO_RIGS_SCRIPT,
+                          str(tmp_path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["errors"] == [0, 0], out
+    assert out["launches"]["sad_wta"] == out["batches"] > 0, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [0, 1, 2])
+def test_tcp_fed_serve_on_the_card(cuda, codec):
+    """Two CameraEmitters attached through /left/configure and
+    /right/configure feed the server on the card: the published frames are
+    the emitted ones, /stream/out equals the plain map, and sad_wta ran
+    once per served batch."""
+    import time
+
+    from steroscopic_hardware_tpu_torch.__main__ import build_app
+    from steroscopic_hardware_tpu_torch.serve_probe import attach_emitters
+
+    L, R = _pair(11, (120, 256))
+    _kernels.reset_launches()
+    app = build_app(["--port", "0", "--no-open"]).start()
+    emitters = attach_emitters(app.url, {"left": L.numpy(),
+                                         "right": R.numpy()}, codec, 60.0)
+    try:
+        pipe = app.server.ctx.pipeline
+        t0 = time.time()
+        while pipe.frames < 5:
+            assert time.time() - t0 < 120, pipe.metrics()
+            time.sleep(0.05)
+    finally:
+        app.shutdown()
+        for em in emitters:
+            em.close()
+    bus = app.manager.bus
+    assert np.array_equal(bus.latest("left").data, L.numpy())
+    assert np.array_equal(bus.latest("right").data, R.numpy())
+    want = sad.disparity_plain(L.to(cuda), R.to(cuda), block_size=16,
+                               max_disparity=64).cpu().numpy()
+    assert np.array_equal(bus.latest("out").data, want)
+    assert pipe.errors == 0
+    assert _kernels.launches["sad_wta"] == pipe.batches > 0

@@ -163,6 +163,34 @@ def test_serve_probe_on_the_cpu(capsys):
         assert r["lat_serve_p50"] is not None and "device_busy" not in r
 
 
+def test_serve_probe_ingest_slam_and_rig_modes(capsys):
+    """The modes of tools/serve_bench.py: TCP emitters attached through
+    /{left,right}/configure (the native parser, the wire bytes per frame),
+    a second rig (both rigs' fps in one window) and live SLAM."""
+    from steroscopic_hardware_tpu_torch import serve_probe
+
+    assert serve_probe.main([
+        "--device", "cpu", "--height", "24", "--width", "64", "--fps", "30",
+        "--seconds", "0.5", "--modes", "tcp-raw,tcp-lzma,dual-rig,slam"]) == 0
+    rows = {r["mode"]: r for r in map(
+        json.loads, capsys.readouterr().out.splitlines()[1:])}
+    assert set(rows) == {"tcp-raw", "tcp-lzma", "dual-rig", "slam"}
+    for r in rows.values():
+        assert r["errors"] == 0
+        assert all(v > 0 for v in r["source_rates"].values())
+    assert set(rows["dual-rig"]["source_rates"]) == {
+        "left", "right", "rig2.left", "rig2.right"}
+    for mode in ("tcp-raw", "tcp-lzma"):
+        assert rows[mode]["parsers"] == ["NativeFrameParser"]
+        assert rows[mode]["wire_bytes_per_frame"] > 24 * 64
+        assert rows[mode]["frames"] > 0
+    assert rows["dual-rig"]["rig2_frames"] > 0
+    assert rows["dual-rig"]["both_rigs_fps"] == pytest.approx(
+        rows["dual-rig"]["fps"] + rows["dual-rig"]["rig2_fps"])
+    assert rows["slam"]["slam_errors"] == 0
+    assert rows["slam"]["slam_keyframes"] >= 1
+
+
 @pytest.mark.parametrize("flags", [["--backend", "xla"]])
 def test_unported_flags_exit_with_an_error(flags, capsys):
     """--backend xla has no counterpart here (--device cpu runs the plain

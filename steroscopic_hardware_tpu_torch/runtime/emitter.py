@@ -66,7 +66,7 @@ class SerialEmitter:
         self._thread.start()
         return self
 
-    def close(self, timeout: float = 5.0):
+    def close(self):
         """Stop the loop, wait for its thread, then close the descriptor:
         the thread waits in ``select`` with a short timeout and never
         blocks in a read or a write, so it ends within one poll and no
@@ -75,7 +75,7 @@ class SerialEmitter:
         full line, and the number may by then belong to another file)."""
         self._closed.set()
         if self._thread.ident is not None:
-            self._thread.join(timeout)
+            self._thread.join(5.0)
         try:
             os.close(self.fd)
         except OSError:

@@ -31,7 +31,8 @@ The modes of ``tools/serve_bench.py`` beyond the static-source ones:
   are attached through ``POST /left/configure`` and ``/right/configure``.
   The row adds the wire bytes per frame and the frame parser the sources
   used (the native C++ one, or the Python one where it did not build).
-  ``tcp-raw-sgm`` is ``tcp-raw`` with ``--backend sgm``.
+  SGM over TCP is ``chip_smoke.py`` phase 10g's, which prints its served
+  fps and source rates.
 
 Every row gives each source's frames per second in the window
 (``source_rates``; ``source_fps`` is the rate asked of them), so a served
@@ -72,10 +73,9 @@ MODES = {
     "tcp-raw": ([], 1),
     "tcp-range": ([], 1),
     "tcp-lzma": ([], 1),
-    "tcp-raw-sgm": (["--backend", "sgm"], 1),
 }
 TCP_CODECS = {"tcp-raw": wire.CODEC_RAW, "tcp-range": wire.CODEC_RANGE,
-              "tcp-lzma": wire.CODEC_LZMA, "tcp-raw-sgm": wire.CODEC_RAW}
+              "tcp-lzma": wire.CODEC_LZMA}
 RIG = "rig2"
 _LAT = ("queue", "serve", "host")
 

@@ -43,6 +43,8 @@ import tempfile
 import time
 import urllib.request
 
+SEED = 20261016  # the boot pair's texture
+
 
 def fetch_json(base: str, path: str, timeout=10.0):
     with urllib.request.urlopen(base + path, timeout=timeout) as r:
@@ -98,7 +100,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--size", type=int, nargs=2, default=(480, 640),
                     metavar=("H", "W"))
-    ap.add_argument("--seed", type=int, default=20261016)
     args = ap.parse_args(argv)
 
     from steroscopic_hardware_tpu_torch.io.png import write_png
@@ -121,7 +122,7 @@ def main(argv=None) -> int:
     samples = []
     with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
         lp, rp = os.path.join(tmp, "left.png"), os.path.join(tmp, "right.png")
-        for path, img in zip((lp, rp), textured_pair(args.seed, H, W)):
+        for path, img in zip((lp, rp), textured_pair(SEED, H, W)):
             write_png(path, img)
         proc = subprocess.Popen(
             [sys.executable, "-m", "steroscopic_hardware_tpu_torch",

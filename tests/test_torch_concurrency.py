@@ -29,6 +29,8 @@ from steroscopic_hardware_tpu_torch.runtime.sources import (
 )
 from steroscopic_hardware_tpu_torch.utils.params import Parameters
 
+from torch_wait import wait
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
@@ -37,15 +39,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _wait(cond, timeout=10.0, dt=0.01):
-    t0 = time.time()
-    while time.time() - t0 < timeout:
-        if cond():
-            return True
-        time.sleep(dt)
-    return False
 
 
 def test_param_updates_during_compute(rng):
@@ -148,16 +141,16 @@ def test_stale_source_detection():
     src = SyntheticSource(mgr.bus, "left", shape=(8, 16), fps=100.0)
     mgr.set_source("left", src)
     try:
-        assert _wait(lambda: mgr.bus.seq("left") > 0)
+        assert wait(lambda: mgr.bus.seq("left") > 0)
         assert mgr.status(stale_after=2.0)["left"]["stale"] is False
         src.pause()
-        assert _wait(lambda: mgr.status(stale_after=0.2)["left"]["stale"],
+        assert wait(lambda: mgr.status(stale_after=0.2)["left"]["stale"],
                      timeout=5.0)
     finally:
         mgr.close_all()
 
 
-def test_bus_publish_latest_wait(rng):
+def test_bus_publish_latestwait(rng):
     bus = FrameBus()
     assert bus.latest("left") is None
     f1 = bus.publish("left", rng.integers(0, 256, (4, 4), dtype=np.uint8))
@@ -176,14 +169,14 @@ def test_static_source_publishes(tmp_path, rng):
     bus = FrameBus()
     src = StaticSource(bus, "left", p, fps=100.0).start()
     try:
-        assert _wait(lambda: bus.seq("left") >= 3)
+        assert wait(lambda: bus.seq("left") >= 3)
         assert np.array_equal(bus.latest("left").data, img)
         src.pause()
         # at most one in-flight frame after the pause
         s = bus.seq("left")
-        assert not _wait(lambda: bus.seq("left") > s + 1, timeout=0.1)
+        assert not wait(lambda: bus.seq("left") > s + 1, timeout=0.1)
         src.resume()
-        assert _wait(lambda: bus.seq("left") > s + 1)
+        assert wait(lambda: bus.seq("left") > s + 1)
     finally:
         src.close()
     assert src.closed
@@ -193,7 +186,7 @@ def test_manager_swap_and_close():
     mgr = CameraManager()
     a = SyntheticSource(mgr.bus, "left", shape=(8, 16), fps=200.0)
     mgr.set_source("left", a)
-    assert _wait(lambda: mgr.bus.seq("left") > 0)
+    assert wait(lambda: mgr.bus.seq("left") > 0)
     b = SyntheticSource(mgr.bus, "left", shape=(8, 16), fps=200.0)
     mgr.set_source("left", b)  # pause, swap, close
     assert a.closed and not b.closed
@@ -217,7 +210,7 @@ def test_pipeline_end_to_end():
     pipe = DepthPipeline(mgr.bus, BlockMatcher(Parameters(7, 16),
                                                device="cpu")).start()
     try:
-        assert _wait(lambda: pipe.frames >= 3, timeout=20.0)
+        assert wait(lambda: pipe.frames >= 3, timeout=20.0)
         out = mgr.bus.latest("out")
         assert out is not None and out.data.shape == (32, 64)
         m = pipe.metrics()
@@ -243,7 +236,7 @@ def test_pipeline_batches_backlogged_frames():
     pipe = DepthPipeline(mgr.bus, SlowMatcher(Parameters(7, 16),
                                               device="cpu")).start()
     try:
-        assert _wait(lambda: pipe.frames >= 6 and pipe.frames > pipe.batches,
+        assert wait(lambda: pipe.frames >= 6 and pipe.frames > pipe.batches,
                      timeout=30.0), pipe.metrics()
         assert mgr.bus.seq("out") >= 6
         m = pipe.metrics()

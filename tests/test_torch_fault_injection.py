@@ -18,14 +18,7 @@ from steroscopic_hardware_tpu_torch.runtime import wire
 from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
 from steroscopic_hardware_tpu_torch.runtime.sources import TcpSource
 
-
-def _wait(cond, timeout=8.0, dt=0.01):
-    t0 = time.time()
-    while time.time() - t0 < timeout:
-        if cond():
-            return True
-        time.sleep(dt)
-    return False
+from torch_wait import wait
 
 
 class ChaosEmitter:
@@ -83,7 +76,7 @@ def test_recovers_from_garbage_between_frames(rng):
     src = TcpSource(bus, "left", "127.0.0.1", em.port).start()
     try:
         # valid frames 0, 1 and 3 land despite the noise
-        assert _wait(lambda: bus.seq("left") >= 3)
+        assert wait(lambda: bus.seq("left") >= 3)
         assert any(np.array_equal(bus.latest("left").data, f)
                    for f in frames)
     finally:
@@ -97,11 +90,11 @@ def test_reconnect_after_disconnect(rng):
     bus = FrameBus()
     src = TcpSource(bus, "left", "127.0.0.1", em.port).start()
     try:
-        assert _wait(lambda: bus.seq("left") >= 2)
+        assert wait(lambda: bus.seq("left") >= 2)
         # the emitter drops the connection after its frames; the source
         # reconnects and pulls the stream again
-        assert _wait(lambda: em.accepted >= 2)
-        assert _wait(lambda: bus.seq("left") >= 4)
+        assert wait(lambda: em.accepted >= 2)
+        assert wait(lambda: bus.seq("left") >= 4)
         assert src.reconnects >= 1
     finally:
         src.close()

@@ -1,13 +1,12 @@
 """The repository's linter (``tools/lint.py``, whose ``TARGETS`` cover the
 JAX side) over the port: every module of ``steroscopic_hardware_tpu_torch``,
-``chip_smoke.py`` and every ``tests/test_torch_*.py``, one case a file
-(syntax, unused imports, tabs, trailing whitespace, the final newline,
-lines over 100 columns, star imports)."""
+``chip_smoke.py``, every ``tests/test_torch_*.py`` and their
+``tests/torch_wait.py`` (syntax, unused imports, tabs, trailing
+whitespace, the final newline, lines over 100 columns, star imports), in
+one case that reports every problem together."""
 
 import importlib.util
 from pathlib import Path
-
-import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("lint",
@@ -18,7 +17,8 @@ _spec.loader.exec_module(lint)
 FILES = sorted(
     [*(ROOT / "steroscopic_hardware_tpu_torch").rglob("*.py"),
      ROOT / "chip_smoke.py",
-     *(ROOT / "tests").glob("test_torch_*.py")])
+     *(ROOT / "tests").glob("test_torch_*.py"),
+     ROOT / "tests" / "torch_wait.py"])
 
 
 def test_the_port_has_files_to_lint():
@@ -29,11 +29,10 @@ def test_the_port_has_files_to_lint():
     assert len(FILES) > 90
 
 
-@pytest.mark.parametrize("path", FILES,
-                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
-def test_lint_clean(path):
+def test_lint_clean():
     before = len(lint.PROBLEMS)
-    lint.lint_file(path)
+    for path in FILES:
+        lint.lint_file(path)
     found = lint.PROBLEMS[before:]
     del lint.PROBLEMS[before:]
     assert not found, "\n".join(found)

@@ -36,12 +36,8 @@ from steroscopic_hardware_tpu_torch.runtime.bus import FrameBus
 from steroscopic_hardware_tpu_torch.runtime.emitter import SerialEmitter
 from steroscopic_hardware_tpu_torch.runtime.sources import SerialSource
 
-
-def wait(cond, timeout=20.0):
-    t0 = time.time()
-    while not cond():
-        assert time.time() - t0 < timeout, "timed out"
-        time.sleep(0.01)
+sys.path.insert(0, "tests")
+from torch_wait import wait
 
 
 def frames(n, shape=(48, 64), seed=0):
@@ -64,7 +60,7 @@ if case == "stream":
     src = SerialSource(bus, "left", path, baud=115200,
                        frame_timeout=5.0).start()
     try:
-        wait(lambda: src.frames_published >= 8)
+        assert wait(lambda: src.frames_published >= 8)
         got = bus.latest("left").data
         # the last published frame is the last one emitted, bit for bit
         assert em.frames_sent == 8 and np.array_equal(got, fs[7])
@@ -82,7 +78,7 @@ elif case.startswith("codec"):
     bus = FrameBus()
     src = SerialSource(bus, "left", path, frame_timeout=5.0).start()
     try:
-        wait(lambda: src.frames_published >= 3)
+        assert wait(lambda: src.frames_published >= 3)
         assert np.array_equal(bus.latest("left").data, fs[2])
     finally:
         src.close()
@@ -110,7 +106,7 @@ elif case == "garbage":
     src.start()
     t.start()
     try:
-        wait(lambda: src.frames_published >= 4)
+        assert wait(lambda: src.frames_published >= 4)
         assert np.array_equal(bus.latest("left").data, fs[-1])
         t.join(10.0)
         assert not t.is_alive()
@@ -132,7 +128,7 @@ elif case == "configure":
         resp = configure(app.url, "left", {"device": path, "baud": 115200})
         assert resp["device"] == path and resp["baud"] == 115200, resp
         bus = app.manager.bus
-        wait(lambda: bus.latest("left") is not None)
+        assert wait(lambda: bus.latest("left") is not None)
         assert any(np.array_equal(bus.latest("left").data, f) for f in fs)
         with urllib.request.urlopen(app.url + "/ports") as r:
             ports = json.load(r)["ports"]
@@ -168,7 +164,7 @@ elif case in ("jax-to-port", "port-to-jax"):
                 fps=200.0, max_frames=3).start()
     src = src_cls(bus, "left", path, frame_timeout=5.0).start()
     try:
-        wait(lambda: len(got) >= 3)
+        assert wait(lambda: len(got) >= 3)
         for g, f in zip(got, fs):
             assert np.array_equal(g, f)
     finally:

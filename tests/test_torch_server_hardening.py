@@ -14,7 +14,6 @@ port passes it to every rig, and
 import json
 import ssl
 import subprocess
-import time
 import urllib.error
 import urllib.request
 
@@ -39,6 +38,8 @@ from steroscopic_hardware_tpu_torch.runtime.sources import (
 )
 from steroscopic_hardware_tpu_torch.utils.params import ParamValidationError
 
+from torch_wait import wait
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
@@ -47,15 +48,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _wait(cond, timeout=20.0, dt=0.02):
-    t0 = time.time()
-    while time.time() - t0 < timeout:
-        if cond():
-            return True
-        time.sleep(dt)
-    return False
 
 
 def _mgr():
@@ -149,12 +141,12 @@ def test_mjpeg_client_cap():
     base = f"http://127.0.0.1:{srv.port}"
     opened = []
     try:
-        assert _wait(lambda: srv.ctx.bus.latest("left") is not None)
+        assert wait(lambda: srv.ctx.bus.latest("left") is not None)
         for _ in range(2):
             r = urllib.request.urlopen(base + "/mjpeg/left", timeout=5)
             r.read(10)  # the stream is established
             opened.append(r)
-        assert _wait(lambda: srv.ctx.stream_clients == 2, timeout=5.0)
+        assert wait(lambda: srv.ctx.stream_clients == 2, timeout=5.0)
         code, body = _request(base + "/mjpeg/left")
         assert code == 503 and b"too many" in body
         code, body = _request(base + "/metrics")
@@ -172,12 +164,12 @@ def test_shared_encode_cache():
     srv = _server().start()
     try:
         bus = srv.ctx.bus
-        assert _wait(lambda: bus.latest("left") is not None)
+        assert wait(lambda: bus.latest("left") is not None)
         f = bus.latest("left")
         a = srv.ctx.encode_frame("left", f)
         b = srv.ctx.encode_frame("left", f)
         assert a is b  # the second call is the cache hit
-        assert _wait(lambda: bus.latest("left").seq > f.seq)
+        assert wait(lambda: bus.latest("left").seq > f.seq)
         assert srv.ctx.encode_frame("left", bus.latest("left")) is not a
     finally:
         srv.shutdown()
@@ -204,7 +196,7 @@ def test_multi_rig_routing():
     srv = Server(AppContext(pipe, manager=mgr, rigs={"cam2": rig})).start()
     base = f"http://127.0.0.1:{srv.port}"
     try:
-        assert _wait(lambda: mgr.bus.latest("cam2.out") is not None
+        assert wait(lambda: mgr.bus.latest("cam2.out") is not None
                      and mgr.bus.latest("out") is not None)
         # both rigs stream independently
         assert _request(base + "/stream/out")[0] == 200
@@ -275,11 +267,11 @@ def test_max_stream_clients_flag(pair_pngs):
     try:
         ctx = app.server.ctx
         assert ctx.max_stream_clients == 1
-        assert _wait(lambda: ctx.bus.latest("left") is not None)
+        assert wait(lambda: ctx.bus.latest("left") is not None)
         r = urllib.request.urlopen(app.url + "/mjpeg/left", timeout=5)
         r.read(10)
         opened.append(r)
-        assert _wait(lambda: ctx.stream_clients == 1, timeout=5.0)
+        assert wait(lambda: ctx.stream_clients == 1, timeout=5.0)
         assert _request(app.url + "/mjpeg/right")[0] == 503
     finally:
         for r in opened:
@@ -297,7 +289,7 @@ def test_rig_flag_serves_each_rig(pair_pngs):
         assert set(ctx.rigs) == {"b", "c"}
         assert ctx.rigs["b"].left_slot == "b.left"
         assert ctx.rigs["c"].out_slot == "c.out"
-        assert _wait(lambda: ctx.bus.latest("b.out") is not None
+        assert wait(lambda: ctx.bus.latest("b.out") is not None
                      and ctx.bus.latest("out") is not None)
         assert ctx.manager.get_source("c.left") is None
         assert ctx.bus.latest("c.out") is None
@@ -317,7 +309,7 @@ def test_serial_flag_attaches_serial_sources(pair_pngs):
         assert isinstance(src, SerialSource)
         assert (src.device, src.baud) == ("/nonexistent/ttyX", 115200)
         assert isinstance(app.manager.get_source("right"), StaticSource)
-        assert _wait(lambda: src.reconnects >= 1, timeout=5.0)
+        assert wait(lambda: src.reconnects >= 1, timeout=5.0)
     finally:
         app.shutdown()
     app = build_app(["--device", "cpu", "--port", "0", "--no-open",
@@ -342,7 +334,7 @@ def test_dedup_uploads_reaches_every_rig(pair_pngs):
         ctx = app.server.ctx
         pipes = (ctx.pipeline, ctx.rigs["b"])
         assert all(p.dedup_uploads for p in pipes)
-        assert _wait(lambda: all(p.dup_skipped >= 3 for p in pipes))
+        assert wait(lambda: all(p.dup_skipped >= 3 for p in pipes))
         assert [p.frames for p in pipes] == [1, 1]
     finally:
         app.shutdown()

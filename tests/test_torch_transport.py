@@ -48,6 +48,8 @@ from steroscopic_hardware_tpu_torch.runtime.sources import (
 )
 from steroscopic_hardware_tpu_torch.utils.params import Parameters
 
+from torch_wait import wait
+
 CODECS = [wire.CODEC_RAW, wire.CODEC_RANGE, wire.CODEC_LZMA]
 
 
@@ -58,15 +60,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _wait(cond, timeout=10.0, dt=0.01):
-    t0 = time.time()
-    while time.time() - t0 < timeout:
-        if cond():
-            return True
-        time.sleep(dt)
-    return False
 
 
 # -- wire protocol ------------------------------------------------------------
@@ -140,7 +133,7 @@ def test_tcp_source_receives_frames(rng):
     src = TcpSource(bus, "left", "127.0.0.1", emitter.port)
     src.start()
     try:
-        assert _wait(lambda: bus.seq("left") >= 3)
+        assert wait(lambda: bus.seq("left") >= 3)
         got = bus.latest("left").data
         assert got.shape == (16, 32)
         assert any(np.array_equal(got, np.roll(base, k, axis=1))
@@ -162,7 +155,7 @@ def test_tcp_source_compressed_codecs_live(rng, codec):
     src = TcpSource(bus, "left", "127.0.0.1", emitter.port)
     src.start()
     try:
-        assert _wait(lambda: bus.seq("left") >= 5)
+        assert wait(lambda: bus.seq("left") >= 5)
         f = bus.latest("left")
         variants = [np.roll(base, k, axis=1) for k in range(7)]
         assert any(np.array_equal(f.data, v) for v in variants)
@@ -177,7 +170,7 @@ def test_tcp_source_reconnects():
     src = TcpSource(bus, "left", "127.0.0.1", 1)  # nothing listens on :1
     src.start()
     try:
-        assert _wait(lambda: src.reconnects >= 2, timeout=5.0)
+        assert wait(lambda: src.reconnects >= 2, timeout=5.0)
     finally:
         src.close()
 
@@ -204,7 +197,7 @@ def test_emitters_and_sources_interoperate_with_jax(rng, codec, direction):
     bus.publish = record
     src = src_cls(bus, "left", "127.0.0.1", emitter.port).start()
     try:
-        assert _wait(lambda: len(got) >= 4)
+        assert wait(lambda: len(got) >= 4)
     finally:
         src.close()
         emitter.close()
@@ -236,7 +229,7 @@ def test_tcp_fed_server_serves_the_jax_plain_map(tmp_path, codec, lr):
     try:
         pipe = app.server.ctx.pipeline
         # a frame computed after both sources delivered
-        assert _wait(lambda: pipe.frames >= 3, timeout=30.0)
+        assert wait(lambda: pipe.frames >= 3, timeout=30.0)
         with urllib.request.urlopen(app.url + "/stream/out") as r:
             got = read_png(r.read())
         with urllib.request.urlopen(app.url + "/ports") as r:
@@ -376,7 +369,7 @@ def test_pipeline_latency_decomposition_and_queue_cap():
     matcher = SlowMatcher(Parameters(7, 16), device="cpu")
     pipe = DepthPipeline(mgr.bus, matcher, max_batch=2, max_queue=2).start()
     try:
-        assert _wait(lambda: pipe.frames >= 6, timeout=30.0)
+        assert wait(lambda: pipe.frames >= 6, timeout=30.0)
         m = pipe.metrics()
         for part in ("queue", "serve", "host"):
             assert f"lat_{part}_p50" in m, m
@@ -384,7 +377,7 @@ def test_pipeline_latency_decomposition_and_queue_cap():
         assert m["lat_serve_p50"] > 0
         # an 80 ms/frame pipeline against 200 fps sources overflows the
         # 2-deep inbox: backlog shows up as counted drops, not lag
-        assert _wait(lambda: pipe.queue_dropped > 0, timeout=10.0), (
+        assert wait(lambda: pipe.queue_dropped > 0, timeout=10.0), (
             pipe.metrics())
     finally:
         pipe.close()
@@ -402,9 +395,9 @@ def test_dedup_uploads_skips_identical_pairs():
     right = StaticSource(bus, "right", frame, fps=60.0).start()
     pipe.start()
     try:
-        assert _wait(lambda: pipe.frames >= 1, timeout=30.0)
+        assert wait(lambda: pipe.frames >= 1, timeout=30.0)
         # the re-published clones do not compute
-        assert _wait(lambda: pipe.dup_skipped > 10, timeout=10.0)
+        assert wait(lambda: pipe.dup_skipped > 10, timeout=10.0)
         assert pipe.frames <= 3
     finally:
         left.close()

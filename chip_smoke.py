@@ -4,8 +4,9 @@ H100, sm_90a): builds the SAD and SGM kernels from
 versions, drives the live depth server in-process at 1920x1080 with both
 engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
 serves live SLAM, rectifies and serves a calibrated rig (``--calib``),
-runs the multi-process tier over 2 and 4 ranks on the card, and feeds the
-server from TCP and serial camera transports.
+runs the multi-process tier over 2 and 4 ranks on the card, feeds the
+server from TCP and serial camera transports, and runs the tools (the
+parameter sweep, the SLAM stress suite, scaling) and the entry hook.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -147,10 +148,31 @@ exit code:
      while dup_skipped grows, without it a launch per batch. Printed: per
      codec the served fps, device busy, wire bytes and host decode ms per
      frame and the parser; both rigs' fps in one window. 10k: ``python -m
-     steroscopic_hardware_tpu_torch.soak --minutes 1 --interval 5`` (a
+     steroscopic_hardware_tpu_torch.soak --minutes 0.5 --interval 5`` (a
      server subprocess with --slam --loop-closure): no backend traceback,
      no error, frames and poses grow at every sample; RSS and device
-     memory at the first and last sample.
+     memory at the first and last sample;
+  11. the tools (``steroscopic_hardware_tpu_torch/tools``) and the entry
+     hook, each a phase of its own in the seconds line. 11a: ``run_sweep
+     --synthetic --lr-check`` over blocks 3-31 (odd) x maxD 16-256 (step
+     16) at 1080p, 240 configurations: each sad_wta map == plain, each LR
+     check's map, mask and valid fraction == the plain sweep and
+     ``check_from_raw``, exactly 1 + 2n sad_wta and one sad_lr launches a
+     configuration; Mpix/s and kernel ms printed per configuration. 11b:
+     ``run_sweep --engine sgm --synthetic`` over maxD 16-256, the map ==
+     the plain chain at d 16, 128, 144 and 256 (both sides of B3's staged
+     kernel at 136), two sgm_aggregate and two sgm_transpose_add a frame.
+     11c: ``run_synth_slam`` on the photometric loop (40 frames, noise 2,
+     the tool's 320x240 rig), front ends sad and sgm, engines vo and
+     vo+ba+loop; gates: sgm drops no frame and no more than sad, every
+     ATE finite and below 0.1 m, sad_lr once a frame (sad), sgm_aggregate
+     and sgm_transpose_add twice (sgm); each row printed with its frame
+     p95 ms. 11d: ``bench_scaling --batch-axis`` at 1080p b16 d64 (F = 1,
+     2, 4, 8; each F's first chained output == plain; 4n launches a F),
+     then its rank mode at 480x640 over the cards present (NCCL, one card
+     a rank: the gathered map == one process, each rank 1 + n sad_wta).
+     11e: ``entry()``'s ``fn(*args)`` on the card == plain with one
+     sad_wta launch, and ``dryrun_multichip`` over every card passes.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -1014,7 +1036,7 @@ def phase_sgm_times(card, maxd=64):
     return out
 
 
-def phase_fused_frame(card, left, right, maxd=64, frames=10):
+def phase_fused_frame(card, left, right, maxd=64, frames=5):
     """Device time of one 1080p SGM frame through the fused chain
     (sgm_disparity(epilogue="fused"): B5) against the served, unfused one
     (B4's summed form, plain argmin and parabola), by torch.profiler over
@@ -2093,7 +2115,7 @@ INGEST_MIN_S = 2.0      # and at least this long a window
 INGEST_FPS = 60.0       # the emitters' rate
 INGEST_SAMPLE_S = 0.5   # /stream/out is read this often in a window
 INGEST_TIMEOUT = 120.0
-SOAK_SMOKE = ("--minutes", "1", "--interval", "5")
+SOAK_SMOKE = ("--minutes", "0.5", "--interval", "5")
 
 
 def ingest_pairs():
@@ -2285,7 +2307,7 @@ def phase_ingest(card):
     --serial left=... and /right/configure device=...; 10d: a static TCP
     pair with and without --dedup-uploads; 10r: two rigs (--rig b) on four
     TCP emitters; 10g: --backend sgm over raw TCP; 10k: the soak tool for
-    one minute on --slam --loop-closure."""
+    half a minute on --slam --loop-closure."""
     from steroscopic_hardware_tpu_torch._native import get_lib
     from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
     from steroscopic_hardware_tpu_torch.runtime import wire
@@ -2444,7 +2466,7 @@ def phase_ingest(card):
          f"{run['busy']['out']:.4f}, {run['frames']} frames in "
          f"{run['batches']} batches, == plain chain, launches {nz}")
 
-    # 10k: the soak tool, one minute on --slam --loop-closure
+    # 10k: the soak tool, half a minute on --slam --loop-closure
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "soak.json")
         proc = subprocess.run(
@@ -2480,6 +2502,246 @@ def phase_ingest(card):
         f"launches {totals} ({card})")
     return totals
 
+
+# -- phase 11: the tools (sweep, SLAM stress suite, scaling, entry hook) -----
+
+SWEEP_N = 2            # timed computes (and kernel steps) a configuration
+SGM_PLAIN_AT = (16, 128, 144, 256)  # both sides of B3's staged kernel at 136
+SUITE_CONDITION = "photometric loop"
+SUITE_FRAMES = 40
+SUITE_ENGINES = ("vo", "vo+ba+loop")
+SUITE_ATE_BOUND = 0.1  # m, every row
+SCALING = ["--height", str(H), "--width", str(W), "--block", "16",
+           "--disp", "64"]
+RANKS_SIZE = ["--height", "480", "--width", "640"]  # the tool's default
+
+
+def _launch_gate(tag, want):
+    """The kernels launched since the last reset must be exactly ``want``
+    (others 0); returns them and resets the counters."""
+    from steroscopic_hardware_tpu_torch import _kernels
+
+    got = dict(_kernels.launches)
+    if any(got[k] != want.get(k, 0) for k in got):
+        fail(f"{tag}: launches {got}, want exactly {want}")
+    _kernels.reset_launches()
+    return got
+
+
+def _add(totals, got):
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def phase_sweep(card, totals):
+    """11a: ``tools.run_sweep --synthetic --lr-check`` over the full grid
+    (blocks 3-31 odd x maxD 16-256 step 16) at 1080p: each B1 map ==
+    ``disparity_plain``, each B2 check's map and mask == the plain sweep
+    and ``check_from_raw``, and its ``lr_valid_frac`` their fraction; per
+    configuration exactly 1 + 2n sad_wta launches (n computes after the
+    first and n kernel steps) and one sad_lr."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import lr_check, sad
+    from steroscopic_hardware_tpu_torch.tools import run_sweep
+
+    pairs = run_sweep.load_pairs([], synthetic=True)
+    L, R = to_cuda(*pairs["synthetic"])
+    want = {"sad_wta": 1 + 2 * SWEEP_N, "sad_lr": 1}
+    rows = []
+    _kernels.reset_launches()
+    for rec, out, (cmap, cvalid) in run_sweep.sweep(
+            pairs, n=SWEEP_N, lr_check=True, device="cuda"):
+        b, d = rec["block"], rec["disp"]
+        _add(totals, _launch_gate(f"11a b{b} d{d}", want))
+        dL, dR = sad.disparity_raw_lr_plain(L, R, block_size=b,
+                                            max_disparity=d)
+        pmap, pvalid = lr_check.check_from_raw(dL, dR, W, d)
+        pvalid = pvalid.cpu().numpy()
+        if not np.array_equal(out, sad.normalize(dL, d).cpu().numpy()):
+            fail(f"11a b{b} d{d}: the sad_wta map differs from plain")
+        if not (np.array_equal(cmap, pmap.cpu().numpy())
+                and np.array_equal(cvalid, pvalid)
+                and rec["lr_valid_frac"] == float(pvalid.mean())):
+            fail(f"11a b{b} d{d}: the LR check differs from plain")
+        rows.append(rec)
+    if len(rows) != 240:
+        fail(f"11a: {len(rows)} configurations, want 240")
+    for b in sorted({r["block"] for r in rows}):
+        say(f"phase 11a b{b} (d: Mpix/s, kernel ms, lr_valid): " + ", ".join(
+            f"{r['disp']}: {r['mpix_s']:.1f}, {r['kernel_ms']:.4f}, "
+            f"{r['lr_valid_frac']:.3f}" for r in rows if r["block"] == b))
+    mpix = [r["mpix_s"] for r in rows]
+    kms = [r["kernel_ms"] for r in rows]
+    at = {(r["block"], r["disp"]): r for r in rows}
+    say(f"phase 11a ok: 240 SAD configurations at 1080p == plain with and "
+        f"without the LR check, 1 + 2n sad_wta and one sad_lr each; Mpix/s "
+        f"{min(mpix)}..{max(mpix)} (b7 d64 {at[7, 64]['mpix_s']}, b31 d256 "
+        f"{at[31, 256]['mpix_s']}), kernel ms {min(kms)}..{max(kms)} (b7 "
+        f"d64 {at[7, 64]['kernel_ms']}, b31 d256 {at[31, 256]['kernel_ms']})"
+        f" ({card})")
+
+
+def phase_sgm_sweep(card, totals):
+    """11b: ``tools.run_sweep --engine sgm --synthetic`` over maxD 16-256
+    at 1080p: per configuration 2 (1 + 2n) launches each of sgm_aggregate
+    and sgm_transpose_add, and the map == the plain chain on the card at
+    ``SGM_PLAIN_AT``."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
+    from steroscopic_hardware_tpu_torch.tools import run_sweep
+
+    pairs = run_sweep.load_pairs([], synthetic=True)
+    L, R = to_cuda(*pairs["synthetic"])
+    frames = 1 + 2 * SWEEP_N
+    want = {"sgm_aggregate": 2 * frames, "sgm_transpose_add": 2 * frames}
+    rows = []
+    _kernels.reset_launches()
+    for rec, out, _ in run_sweep.sweep(pairs, engine="sgm", n=SWEEP_N,
+                                       device="cuda"):
+        d = rec["disp"]
+        _add(totals, _launch_gate(f"11b d{d}", want))
+        if d in SGM_PLAIN_AT:
+            with _plain_chain():
+                plain = sgm_one(L, R, max_disparity=d, p1=1.0, p2=8.0,
+                                subpixel=True, lr=False,
+                                threshold=1.0).cpu().numpy()
+            _launch_gate(f"11b d{d} plain chain", {})
+            if not np.array_equal(out, plain):
+                fail(f"11b d{d}: {int((out != plain).sum())} pixels differ "
+                     "from the plain chain")
+            _free()
+        rows.append(rec)
+    say("phase 11b (d: ms, Mpix/s, kernel ms): " + ", ".join(
+        f"{r['disp']}: {r['ms']:.2f}, {r['mpix_s']:.2f}, "
+        f"{r['kernel_ms']:.4f}" for r in rows))
+    say(f"phase 11b ok: SGM sweep maxD 16..256 at 1080p, == plain chain at "
+        f"{SGM_PLAIN_AT}, 2 sgm_aggregate and 2 sgm_transpose_add a frame "
+        f"({card})")
+
+
+def phase_suite(card, totals):
+    """11c: ``tools.run_synth_slam`` on the photometric loop (40 frames,
+    noise 2, the tool's 320x240 rig): the ``sad`` and ``sgm`` front ends
+    with the ``vo`` and ``vo+ba+loop`` engines. Gates: sgm drops 0 frames
+    and no more than sad; every ATE finite and below SUITE_ATE_BOUND; B2s
+    once a frame (sad), sgm_aggregate and sgm_transpose_add twice (sgm)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.tools import run_synth_slam as tool
+
+    from steroscopic_hardware_tpu_torch.utils.device import resolve_device
+
+    args = tool.parse_args(["--frames", str(SUITE_FRAMES)])
+    args.device = resolve_device("cuda")
+    cond = dict(tool.CONDITIONS)[SUITE_CONDITION]
+    n = SUITE_FRAMES * len(SUITE_ENGINES)
+    want = {"sad": {"sad_lr": n},
+            "sgm": {"sgm_aggregate": 2 * n, "sgm_transpose_add": 2 * n}}
+    rows = []
+    for fe in ("sad", "sgm"):
+        a = tool.condition_args(args, cond, fe)
+        cam, frames, gt = tool.render_sequence(a)
+        _kernels.reset_launches()
+        recs = tool.run_engines(a, cam, frames, gt, SUITE_ENGINES)
+        got = _launch_gate(f"11c {fe}", want[fe])
+        # the sad front end's sad_lr launches are B2s's (with costs)
+        if "sad_lr" in got:
+            got["sad_lr_costs"] = got.pop("sad_lr")
+        _add(totals, got)
+        rows += recs
+    drops = {fe: max(r["tracking_drops"] for r in rows
+                     if r["frontend"] == fe) for fe in ("sad", "sgm")}
+    bad = [r for r in rows if not (np.isfinite(r["ate_rmse_m"])
+                                   and r["ate_rmse_m"] < SUITE_ATE_BOUND)]
+    for r in rows:
+        say(f"phase 11c {SUITE_CONDITION} {r['frontend']} {r['engine']}: "
+            f"ATE {r['ate_rmse_m']} m, drops {r['tracking_drops']}, min "
+            f"inliers {r['min_inliers']}, loops {r['loops_closed']}, fps "
+            f"{r['fps']}, frame p95 {r['frame_p95_ms']} ms, max "
+            f"{r['frame_max_ms']} ms" + (f", stages {r['stage_s']}"
+                                         if "stage_s" in r else ""))
+    if drops["sgm"] != 0 or drops["sgm"] > drops["sad"] or bad:
+        fail(f"11c: drops {drops} (sgm must drop 0, no more than sad); "
+             f"ATE at or above {SUITE_ATE_BOUND} m or not finite: {bad}")
+    say(f"phase 11c ok: {SUITE_CONDITION}, {SUITE_FRAMES} frames: drops "
+        f"{drops}, every ATE < {SUITE_ATE_BOUND} m ({card})")
+
+
+def phase_scaling(card, totals):
+    """11d: ``tools.bench_scaling --batch-axis`` at 1080p b16 d64: each F's
+    first chained output == ``disparity_plain`` on the same frames, n
+    launches a chain (one untimed, 3 timed); then the rank mode at 480x640
+    over the cards present (NCCL, one card a rank): the gathered map == the
+    one-process map, each rank 1 + n sad_wta launches."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sad
+    from steroscopic_hardware_tpu_torch.tools import bench_scaling as tool
+    from steroscopic_hardware_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    args = tool.parse_args(SCALING + ["--batch-axis"])
+    _kernels.reset_launches()
+    for row in tool.bench_batch_axis(args, dev):
+        _add(totals, _launch_gate(f"11d batch={row['batch']}",
+                                  {"sad_wta": 4 * args.n}))
+        want = sad.disparity_plain(row["lefts"], row["rights"],
+                                   block_size=args.block,
+                                   max_disparity=args.disp)
+        if not torch.equal(row["first"], want):
+            fail(f"11d batch={row['batch']}: the first chained output "
+                 "differs from plain")
+        say(f"phase 11d {tool.batch_line(row, dev)}")
+    args = tool.parse_args(RANKS_SIZE)
+    counts = []
+    for row in tool.bench_ranks(args, dev):
+        L, R = to_cuda(row["left"], row["right"])
+        want = sad.disparity(L, R, block_size=args.block,
+                             max_disparity=args.disp).cpu().numpy()
+        _launch_gate("11d one-process map", {"sad_wta": 1})
+        if not np.array_equal(row["disp"], want):
+            fail(f"11d ranks={row['ranks']}: the gathered map differs from "
+                 "one process")
+        if any(c["sad_wta"] != 1 + args.n or sum(c.values()) != 1 + args.n
+               for c in row["launches"]):
+            fail(f"11d ranks={row['ranks']}: launches by rank "
+                 f"{row['launches']}, want sad_wta {1 + args.n} each")
+        for c in row["launches"]:
+            _add(totals, c)
+        say(f"phase 11d {tool.rank_line(row, dev)}")
+        counts.append(row["ranks"])
+    say(f"phase 11d ok: batch axis F = 1..8 == plain, ranks {counts} == one "
+        f"process ({card})")
+
+
+def phase_entry(card, totals):
+    """11e: ``entry()`` on the card == ``disparity_plain`` (one sad_wta
+    launch), and ``dryrun_multichip`` over every card present."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.entry import dryrun_multichip, entry
+    from steroscopic_hardware_tpu_torch.ops import sad
+
+    _kernels.reset_launches()
+    fn, (left, right) = entry()
+    got = fn(left, right)
+    _add(totals, _launch_gate("11e entry", {"sad_wta": 1}))
+    want = sad.disparity_plain(left, right, block_size=7, max_disparity=64)
+    if not (left.is_cuda and torch.equal(got, want)):
+        fail("11e: entry()'s fn(*args) differs from plain")
+    n = torch.cuda.device_count()
+    stages = dryrun_multichip(n)
+    say(f"phase 11e ok: entry() on the card == plain; dryrun_multichip({n}) "
+        f"matches one rank: " + json.dumps(stages) + f" ({card})")
+
+
+def phase_tools(card, timed):
+    """Phase 11: 11a-11e, each timed as a phase of its own. Returns the
+    launches of the paths they drive (B2s's as ``sad_lr_costs``)."""
+    totals = {}
+    for name, phase in (("11a", phase_sweep), ("11b", phase_sgm_sweep),
+                        ("11c", phase_suite), ("11d", phase_scaling),
+                        ("11e", phase_entry)):
+        timed(name, phase, card, totals)
+        _free()
+    return totals
 
 def sad_bound(name, maxd=64, px=H * W):
     """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
@@ -2556,6 +2818,14 @@ def main() -> int:
     launches["sad_lr"] += ingest["sad_lr"]
     for name in ("sgm_aggregate", "sgm_transpose_add"):
         sgm_launches[name] += ingest[name]
+    _free()
+    tools = phase_tools(card, timed)
+    # phase 11's: the sweeps, the suite's front ends, scaling and entry()
+    for name in ("sad_wta", "sad_lr"):
+        launches[name] += tools.get(name, 0)
+    b2s_launches += tools.get("sad_lr_costs", 0)
+    for name in ("sgm_aggregate", "sgm_transpose_add"):
+        sgm_launches[name] += tools.get(name, 0)
     say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):

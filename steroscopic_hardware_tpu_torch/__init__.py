@@ -22,6 +22,11 @@ stays beside it as the reference the port is held to; this package imports
                  SAD, SGM, BA and pose graph over a ``DeviceMesh`` of ranks.
 - ``vo``       — ``python -m steroscopic_hardware_tpu_torch.vo``: StereoVO
                  over a synthetic or KITTI sequence, one JSON line.
+- ``tools``    — the counterparts of the repository's ``tools/``: the
+                 parameter sweep, the synthetic SLAM stress suite and
+                 batch / rank scaling.
+- ``entry``    — ``entry()`` and ``dryrun_multichip(n)``, the counterpart
+                 of ``__graft_entry__.py``.
 - ``csrc``     — the CUDA C++ kernels, built at first use by ``_kernels``.
 - ``serve_probe`` — serving fps / latency / device busy share per mode.
 

@@ -80,6 +80,24 @@ from steroscopic_hardware_tpu_torch.examples import run_stream
 assert run_stream.main(["--synthetic", "--size", "16", "64", "--device",
                         "cpu", "-n", "2", "--block", "5", "--disp",
                         "16"]) == 0
+# the tools and the entry hook
+from steroscopic_hardware_tpu_torch.entry import entry
+from steroscopic_hardware_tpu_torch.tools import (
+    bench_scaling, run_sweep, run_synth_slam)
+for engine in ("sad", "sgm"):
+    rows = list(run_sweep.sweep({"p": (left, right)}, engine=engine,
+                                blocks=[5], disps=[16], n=1, lr_check=True,
+                                device="cpu"))
+    assert len(rows) == 1 and rows[0][0]["lr_valid_frac"] > 0, rows
+a = run_synth_slam.parse_args(["--frames", "2", "--device", "cpu"])
+cam, frames, gt = run_synth_slam.render_sequence(a)
+assert len(run_synth_slam.run_engines(a, cam, frames, gt,
+                                      ["vo+ba+loop"])) == 1
+a = bench_scaling.parse_args(["--device", "cpu", "--height", "16",
+                              "--width", "40", "--disp", "16", "-n", "1"])
+assert len(list(bench_scaling.bench_batch_axis(a, torch.device("cpu")))) == 4
+fn, pair = entry(device="cpu")
+assert fn(*pair).shape == (480, 640)
 print("foreign modules:", sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or (
@@ -92,8 +110,9 @@ def test_port_never_imports_jax():
     ``utils.timing`` among them), a CPU SAD and SGM serve step, a two-frame
     CPU visual odometry run, a three-frame SLAM run with loop closure, the
     server with both backends (and with --slam), the server fed by two TCP
-    emitters in the lzma codec and the ``run_stream`` example load neither
-    jax nor any module of the JAX package."""
+    emitters in the lzma codec, the ``run_stream`` example, the sweep, the
+    SLAM stress tool, the batch-axis scaling run and ``entry()`` load
+    neither jax nor any module of the JAX package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
@@ -1034,3 +1053,96 @@ def test_tcp_fed_serve_on_the_card(cuda, codec):
     assert np.array_equal(bus.latest("out").data, want)
     assert pipe.errors == 0
     assert _kernels.launches["sad_wta"] == pipe.batches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine,block,disp", [("sad", 9, 144),
+                                               ("sgm", 0, 144)])
+def test_sweep_configuration_on_the_card(cuda, monkeypatch, engine, block,
+                                         disp):
+    """One configuration of ``tools.run_sweep`` on the card, with the LR
+    check: the map equals the plain version (SAD: one sad_wta launch a
+    compute and one sad_lr for the check, the checked map and mask equal
+    the plain ones; SGM: the plain chain, B3's staged kernel above D
+    136), and the line carries the kernel's CUDA-event time."""
+    from steroscopic_hardware_tpu_torch.ops import lr_check
+    from steroscopic_hardware_tpu_torch.tools import run_sweep
+
+    left, right, _ = run_sweep.synthetic_pair(2, (96, 300))
+    _kernels.reset_launches()
+    (rec, out, checked), = run_sweep.sweep(
+        {"p": (left, right)}, engine=engine, blocks=[block], disps=[disp],
+        n=2, lr_check=True, device=cuda)
+    assert rec["kernel_ms"] > 0 and 0 < rec["lr_valid_frac"] < 1
+    L, R = torch.from_numpy(left), torch.from_numpy(right)
+    if engine == "sad":
+        assert _kernels.launches["sad_wta"] == 1 + 2 + 2
+        assert _kernels.launches["sad_lr"] == 1
+        dL, dR = sad.disparity_raw_lr_plain(L, R, block_size=block,
+                                            max_disparity=disp)
+        assert np.array_equal(out, sad.normalize(dL, disp).numpy())
+        want = lr_check.check_from_raw(dL, dR, L.shape[-1], disp)
+        assert all(np.array_equal(g, w.numpy())
+                   for g, w in zip(checked, want))
+        return
+    from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
+
+    # the same chain on the card with each kernel's plain version
+    monkeypatch.setattr(sgm, "aggregate_axis",
+                        lambda c, P1, P2, *, out_dtype:
+                        sgm.aggregate_axis_plain(c, P1, P2,
+                                                 out_dtype=out_dtype))
+    monkeypatch.setattr(sgm, "transpose_add", sgm.transpose_add_plain)
+    monkeypatch.setattr(sgm, "sgm_epilogue", sgm.sgm_epilogue_plain)
+    _kernels.reset_launches()
+    want = sgm_one(L.to(cuda), R.to(cuda), max_disparity=disp, p1=1.0,
+                   p2=8.0, subpixel=True, lr=False, threshold=1.0)
+    assert sum(_kernels.launches.values()) == 0
+    assert np.array_equal(out, want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_entry_on_the_card(cuda):
+    """``entry()`` on the card: its pair is on the GPU, and ``fn(*args)``
+    (one sad_wta launch) equals the plain version of the CPU pair."""
+    from steroscopic_hardware_tpu_torch.entry import entry
+
+    fn, (left, right) = entry()
+    assert left.is_cuda and right.is_cuda
+    _kernels.reset_launches()
+    got = fn(left, right)
+    assert _kernels.launches["sad_wta"] == 1
+    want = sad.disparity_plain(left.cpu(), right.cpu(), block_size=7,
+                               max_disparity=64)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_clean_loop_on_cpu_draws_tracks_as_the_cpu(cuda):
+    """The SLAM suite's clean loop (``tools.run_synth_slam``, 40 frames)
+    through StereoVO on the card, fed the CPU generator's RANSAC draws,
+    tracks as the CPU run does: the same inliers and drops on every
+    frame, camera centres within 1e-4 m. (The card's own generator draws
+    other minimal sets, so the two runs may differ where RANSAC is
+    marginal.)"""
+    from steroscopic_hardware_tpu_torch.models import slam
+    from steroscopic_hardware_tpu_torch.tools import run_synth_slam as tool
+
+    args = tool.parse_args(["--frames", "40"])
+    args.device = cuda
+    a = tool.condition_args(args, dict(tool.CONDITIONS)["clean loop"], "sad")
+    cam, frames, gt = tool.render_sequence(a)
+    card = tool.make_engine("vo", a, cam)
+    gen = torch.Generator()
+    card._ransac_scores = lambda ctr: slam.frame_scores(
+        gen, card.seed, ctr, card.max_keypoints, "cpu").to(cuda)
+    a.device = torch.device("cpu")
+    cpu = tool.make_engine("vo", a, cam)
+    for left, right in frames:
+        card.process(left, right)
+        cpu.process(left, right)
+    assert card.n_inliers == cpu.n_inliers
+    assert card.tracking_drops == cpu.tracking_drops
+    np.testing.assert_allclose(card.positions(), cpu.positions(), rtol=0,
+                               atol=1e-4)
+    assert slam.ate_rmse(card.positions(), gt) < 0.1

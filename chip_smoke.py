@@ -5,8 +5,10 @@ versions, drives the live depth server in-process at 1920x1080 with both
 engines, runs stereo visual odometry and SLAM at KITTI's frame geometry,
 serves live SLAM, rectifies and serves a calibrated rig (``--calib``),
 runs the multi-process tier over 2 and 4 ranks on the card, feeds the
-server from TCP and serial camera transports, and runs the tools (the
-parameter sweep, the SLAM stress suite, scaling) and the entry hook.
+server from TCP and serial camera transports, runs the tools (the
+parameter sweep, the SLAM stress suite, scaling) and the entry hook, and
+the measurement tools (bench, the kernel table, the SGM stages, the golden
+vectors, serve_probe's last modes).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -172,7 +174,22 @@ exit code:
      then its rank mode at 480x640 over the cards present (NCCL, one card
      a rank: the gathered map == one process, each rank 1 + n sad_wta).
      11e: ``entry()``'s ``fn(*args)`` on the card == plain with one
-     sad_wta launch, and ``dryrun_multichip`` over every card passes.
+     sad_wta launch, and ``dryrun_multichip`` over every card passes;
+  12. the measurement tools, each a phase of its own in the seconds line.
+     12a: ``python -m steroscopic_hardware_tpu_torch.bench --synthetic``
+     (in-process): its guard passes and its JSON line names the card;
+     12b: ``tools.bench_table`` over every row at n = 2 (``--scale
+     0.01``), no row with an error, each row's launches printed, and the
+     first chained step of the VGA SAD, SGM d64 and the three VGA tracking
+     rows (sad, sgm, sgm_half) == the same step through the plain path;
+     12c: the sgm_half front end on one 1080p frame == the plain path;
+     12d: ``tools.sgm_bench`` at 1080p d64, every row with no error;
+     12e: ``tools.gen_vectors`` on a seeded PNG pair written there, each
+     case's vectors == the golden model == sad_wta on the crop;
+     12f: ``serve_probe --modes device-colorize-preview-2,slam-sgm-half``
+     at 1080p, 3 s windows: frames served, no error;
+     12g: ``tools.run_synth_slam``'s clean loop (40 frames, vo) with the
+     engine's own RANSAC draws, sad and sgm: ATE < 0.1 m each.
 Then one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Without a usable GPU it exits 1 before
 printing anything; it imports nothing of JAX or of the JAX package.
@@ -865,20 +882,29 @@ def phase_sgm_truth(left, right, truth, edges, maxd=64):
 
 @contextlib.contextmanager
 def _plain_chain():
-    """Points the SGM wrappers at their plain versions, so the serving
-    chain runs without any kernel (the reference maps)."""
-    from steroscopic_hardware_tpu_torch.ops import sgm
+    """Points the SGM wrappers and the SAD launchers at their plain
+    versions, so the serving chain (and the VO front ends) run without any
+    kernel (the reference maps)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sad, sgm
 
     saved = sgm.aggregate_axis, sgm.transpose_add, sgm.sgm_epilogue
+    saved_sad = _kernels.sad_wta, _kernels.sad_lr
     sgm.aggregate_axis = (
         lambda c, P1, P2, *, out_dtype: sgm.aggregate_axis_plain(
             c, P1, P2, out_dtype=out_dtype))
     sgm.transpose_add = sgm.transpose_add_plain
     sgm.sgm_epilogue = sgm.sgm_epilogue_plain
+    _kernels.sad_wta = lambda l, r, b, d: sad.disparity_plain(
+        l, r, block_size=b, max_disparity=d)
+    _kernels.sad_lr = lambda l, r, b, d, costs=False: (
+        sad.disparity_raw_lr_plain(l, r, block_size=b, max_disparity=d,
+                                   with_costs=costs))
     try:
         yield
     finally:
         sgm.aggregate_axis, sgm.transpose_add, sgm.sgm_epilogue = saved
+        _kernels.sad_wta, _kernels.sad_lr = saved_sad
 
 
 def phase_sgm_serve(left, right):
@@ -1069,7 +1095,7 @@ def phase_fused_frame(card, left, right, maxd=64, frames=5):
 
 VO_FRAMES = 40       # the synthetic loop through StereoVO, frontend sad
 VO_SGM_FRAMES = 10   # the shorter run with frontend sgm
-VO_PROFILED = 10     # frames under torch.profiler (after the first)
+VO_PROFILED = 5      # frames under torch.profiler (after the first)
 VO = dict(block_size=9, max_disparity=128, max_keypoints=512,
           fast_threshold=20)  # examples/run_kitti_vo.py's settings
 # ATE bounds, m: about 3x the first chip run's (PERF.md section 6)
@@ -2115,7 +2141,7 @@ INGEST_MIN_S = 2.0      # and at least this long a window
 INGEST_FPS = 60.0       # the emitters' rate
 INGEST_SAMPLE_S = 0.5   # /stream/out is read this often in a window
 INGEST_TIMEOUT = 120.0
-SOAK_SMOKE = ("--minutes", "0.5", "--interval", "5")
+SOAK_SMOKE = ("--minutes", "0.25", "--interval", "5")
 
 
 def ingest_pairs():
@@ -2307,7 +2333,7 @@ def phase_ingest(card):
     --serial left=... and /right/configure device=...; 10d: a static TCP
     pair with and without --dedup-uploads; 10r: two rigs (--rig b) on four
     TCP emitters; 10g: --backend sgm over raw TCP; 10k: the soak tool for
-    half a minute on --slam --loop-closure."""
+    a quarter minute on --slam --loop-closure."""
     from steroscopic_hardware_tpu_torch._native import get_lib
     from steroscopic_hardware_tpu_torch.models.blockmatch import sgm_one
     from steroscopic_hardware_tpu_torch.runtime import wire
@@ -2466,7 +2492,7 @@ def phase_ingest(card):
          f"{run['busy']['out']:.4f}, {run['frames']} frames in "
          f"{run['batches']} batches, == plain chain, launches {nz}")
 
-    # 10k: the soak tool, half a minute on --slam --loop-closure
+    # 10k: the soak tool, a quarter minute on --slam --loop-closure
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "soak.json")
         proc = subprocess.run(
@@ -2743,6 +2769,276 @@ def phase_tools(card, timed):
         _free()
     return totals
 
+# -- phase 12: the measurement tools and the card's own RANSAC draws ---------
+
+TABLE_SCALE = 0.01     # every bench_table row at its least chain, n = 2
+# rows whose first chained step is held to the plain path: one SAD, one SGM
+# and the three VGA tracking rows (sad, sgm, sgm_half front ends)
+CHAIN_CHECKED = (
+    "640x480 b7 d64 plain",
+    "640x480 SGM d64 subpixel",
+    "640x480 SLAM track SAD d64 (frontend+match+PnP)",
+    "640x480 SLAM track SGM d64 (frontend+match+PnP)",
+    "640x480 SLAM track SGMhalf d64 (pyramid census frontend)",
+)
+SGM_BENCH_FRAMES = 2   # sgm_bench's --frames: chains of 1 and 4
+# serve_probe's window per mode, s: slam-sgm-half serves batches of 8
+# frames that take 4.5-7.6 s each at 1080p (PERF.md section 5), so its
+# window must hold more than one batch
+PROBE_SECONDS = {"device-colorize-preview-2": 3.0, "slam-sgm-half": 15.0}
+VECTORS_SIZE = (480, 640)  # the seeded PNG pair gen_vectors reads
+CLEAN_FRONTENDS = ("sad", "sgm")
+CLEAN_ATE_BOUND = 0.1  # m: the JAX tool's clean loop reads 0.0436 / 0.0548
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _with_costs(got):
+    """Launches with sad_lr's counted as sad_lr_costs: the caller's sweeps
+    carry the costs (B2s)."""
+    got = dict(got)
+    got["sad_lr_costs"] = got.pop("sad_lr")
+    return got
+
+
+def phase_bench(card, totals, dev):
+    """12a: ``python -m steroscopic_hardware_tpu_torch.bench --synthetic``
+    in-process: exit 0 (the guard passed), one JSON line with the
+    original's fields and the card's name; sad_wta only."""
+    import io
+
+    from steroscopic_hardware_tpu_torch import _kernels, bench
+
+    _kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--synthetic", "--device", dev.type])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    got = dict(_kernels.launches)
+    if rc != 0 or "error" in line or line["detail"]["card"] != card:
+        fail(f"12a: bench exited {rc}: {line}")
+    if got["sad_wta"] == 0 or sum(got.values()) != got["sad_wta"]:
+        fail(f"12a: launches {got}, want sad_wta only")
+    _add(totals, got)
+    say(f"phase 12a ok: bench --synthetic {json.dumps(line)}")
+
+
+def phase_table(card, totals, dev):
+    """12b: ``tools.bench_table --scale TABLE_SCALE`` over every row, each
+    at n = 2 and none with an error; then the first chained step of each
+    row of CHAIN_CHECKED == the same step through the plain path on the
+    same carry (every output, exactly; no kernel launched by the plain
+    step)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.tools import bench_table
+
+    costs = {name: c for name, _, _, c in bench_table.specs()}
+    rows = []
+    for name in bench_table.names():
+        _kernels.reset_launches()
+        got = bench_table.table(dev, scale=TABLE_SCALE, filter=name,
+                                out=lambda line: None)
+        if len(got) != 1 or got[0]["name"] != name:
+            fail(f"12b: filter {name!r} ran {[r['name'] for r in got]}")
+        rec = got[0]
+        if "error" in rec or rec["n"] != 2:
+            fail(f"12b: {name}: {rec}")
+        rec["launches"] = (_with_costs if costs[name] else dict)(
+            _kernels.launches)
+        if not any(rec["launches"].values()):
+            fail(f"12b: {name} launched no kernel")
+        _add(totals, rec["launches"])
+        rows.append(rec)
+    for r in rows:
+        say(f"phase 12b {r['name']}: {r['ms']:.4f} ms a frame, "
+            f"{r['mpix_s']:.1f} Mpix/s, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    specs = {name: make for name, _, make, _ in bench_table.specs()}
+    for name in CHAIN_CHECKED:
+        step, carry0, _, _ = specs[name](bench_table.seeded_pairs(dev, SEED))
+        _kernels.reset_launches()
+        got = step(carry0)
+        _add(totals, (_with_costs if costs[name] else dict)(
+            _kernels.launches))
+        _kernels.reset_launches()
+        with _plain_chain():
+            want = step(carry0)
+        _launch_gate(f"12b {name} plain path", {})
+        pairs = list(zip(_leaves(got), _leaves(want)))
+        if not all(torch.equal(g, w) if torch.is_tensor(g) else g == w
+                   for g, w in pairs):
+            fail(f"12b {name}: the first chained step differs from the "
+                 "plain path")
+    say(f"phase 12b ok: {len(rows)} bench_table rows at n = 2 with no error;"
+        f" the first chained step of {len(CHAIN_CHECKED)} rows == plain "
+        f"({card})")
+    return rows
+
+
+def phase_sgm_half(card, totals, left, right):
+    """12c: the sgm_half front end (``_frame_frontend``) on one 1080p frame,
+    kernels against the plain path: every output equal."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.models.slam import _frame_frontend
+
+    L, R = to_cuda(left, right)
+    kw = dict(block_size=7, max_disparity=64, fast_threshold=20,
+              max_keypoints=512, intr=(1400.0, 1400.0, W / 2, H / 2),
+              baseline=0.12, frontend="sgm_half")
+    _kernels.reset_launches()
+    got = _frame_frontend(L, R, **kw)
+    got_launches = _launch_gate("12c sgm_half", {"sgm_aggregate": 2,
+                                                 "sgm_transpose_add": 2})
+    _add(totals, got_launches)
+    with _plain_chain():
+        want = _frame_frontend(L, R, **kw)
+    _launch_gate("12c sgm_half plain path", {})
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("12c: the sgm_half front end differs from the plain path")
+    say(f"phase 12c ok: sgm_half front end at {W}x{H} d64 == plain path "
+        f"({int(got[5].sum())} of 512 keypoints triangulated) ({card})")
+
+
+def phase_sgm_bench(card, totals, dev):
+    """12d: ``tools.sgm_bench --size 1920x1080 --maxd 64`` at
+    SGM_BENCH_FRAMES: every row timed, none with an error."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.tools import sgm_bench
+
+    _kernels.reset_launches()
+    rows = sgm_bench.bench(dev, size=(W, H), maxd=64,
+                           frames=SGM_BENCH_FRAMES, out=lambda line: None)
+    _add(totals, _kernels.launches)
+    bad = [r for r in rows if "error" in r]
+    if bad or len(rows) != len(sgm_bench.names()):
+        fail(f"12d: sgm_bench rows {len(rows)}, errors {bad}")
+    say(f"phase 12d ok: sgm_bench {W}x{H} d64 (ms a frame): " + ", ".join(
+        f"{r['name']} {r['ms']:.4f}" for r in rows) + f" ({card})")
+
+
+def phase_vectors(card, totals, dev):
+    """12e: ``tools.gen_vectors`` on a seeded PNG pair written here: each
+    case's .mem lines are the golden disparities of its crop, and the
+    kernel's map of the crop (sad_wta) equals them."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.io.png import write_png
+    from steroscopic_hardware_tpu_torch.ops import sad
+    from steroscopic_hardware_tpu_torch.ops.sad_golden import disparity_numpy
+    from steroscopic_hardware_tpu_torch.tools import gen_vectors
+
+    n, size, block, disp = 4, 128, 15, 64
+    left, right = random_pair(np.random.default_rng(SEED + 12), VECTORS_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{s}.png") for s in ("L", "R")]
+        write_png(paths[0], left)
+        write_png(paths[1], right)
+        out = os.path.join(tmp, "vectors")
+        with contextlib.redirect_stdout(sys.stderr):
+            gen_vectors.main([out, "--left", paths[0], "--right", paths[1],
+                              "--n", str(n), "--size", str(size)])
+        _kernels.reset_launches()
+        for i in range(n):
+            base = os.path.join(out, f"case{i}")
+            lp = np.fromfile(base + "_L.raw", np.uint8).reshape(size, size)
+            rp = np.fromfile(base + "_R.raw", np.uint8).reshape(size, size)
+            with open(base + "_exp_disp.mem") as f:
+                mem = np.array([int(v, 16) for v in f.read().split()],
+                               np.uint8).reshape(size, size)
+            L, R = (torch.from_numpy(a).to(dev) for a in (lp, rp))
+            kernel = sad.disparity(L, R, block_size=block,
+                                   max_disparity=disp).cpu().numpy()
+            if not (np.array_equal(mem, disparity_numpy(lp, rp, block, disp))
+                    and np.array_equal(mem, kernel)):
+                fail(f"12e: case{i}'s vectors differ from the golden model "
+                     "or the kernel")
+        _add(totals, _launch_gate("12e", {"sad_wta": n}))
+    say(f"phase 12e ok: gen_vectors, {n} cases of {size}x{size} b{block} "
+        f"d{disp} == golden == sad_wta ({card})")
+
+
+def phase_probe(card, totals, dev):
+    """12f: ``serve_probe --modes MODE --seconds S`` at 1080p for each
+    MODE, S of PROBE_SECONDS: frames served, no error (and no SLAM
+    error)."""
+    from steroscopic_hardware_tpu_torch import _kernels, serve_probe
+
+    rows = []
+    _kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "probe.json")
+        for mode, seconds in PROBE_SECONDS.items():
+            serve_probe.main(["--device", dev.type, "--height", str(H),
+                              "--width", str(W), "--modes", mode,
+                              "--seconds", str(seconds), "--out", out])
+            with open(out) as f:
+                rows += json.load(f)
+    got = dict(_kernels.launches)
+    if got["sad_lr"] or got["sgm_aggregate"] == 0 or got["sad_wta"] == 0:
+        fail(f"12f: launches {got}: want sad_wta (the serve) and the SGM "
+             "kernels (the sgm_half front end), no sad_lr")
+    _add(totals, got)
+    for r in rows:
+        if r["frames"] <= 0 or r["errors"] or r.get("slam_errors"):
+            fail(f"12f: {r['mode']}: {json.dumps(r)}")
+        say(f"phase 12f {r['mode']}: fps {r['fps']}, frames {r['frames']}, "
+            f"serve p50 {r['lat_serve_p50']} ms, device busy "
+            f"{r.get('device_busy')}" + (
+                f", SLAM poses/s {r['slam_pose_fps']}" if "slam_pose_fps" in r
+                else ""))
+    say(f"phase 12f ok: {', '.join(PROBE_SECONDS)} served with no error "
+        f"({card})")
+
+
+def phase_clean_loop(card, totals, dev):
+    """12g: ``tools.run_synth_slam``'s clean loop (40 frames), engine vo,
+    with the engine's own RANSAC draws: ATE below CLEAN_ATE_BOUND for each
+    front end of CLEAN_FRONTENDS; B2s once a frame (sad), sgm_aggregate and
+    sgm_transpose_add twice (sgm)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.tools import run_synth_slam as tool
+
+    args = tool.parse_args(["--frames", str(SUITE_FRAMES)])
+    args.device = dev
+    cond = dict(tool.CONDITIONS)["clean loop"]
+    want = {"sad": {"sad_lr": SUITE_FRAMES},
+            "sgm": {"sgm_aggregate": 2 * SUITE_FRAMES,
+                    "sgm_transpose_add": 2 * SUITE_FRAMES}}
+    for fe in CLEAN_FRONTENDS:
+        a = tool.condition_args(args, cond, fe)
+        cam, frames, gt = tool.render_sequence(a)
+        _kernels.reset_launches()
+        (rec,) = tool.run_engines(a, cam, frames, gt, ("vo",))
+        _add(totals, _with_costs(_launch_gate(f"12g {fe}", want[fe])))
+        say(f"phase 12g clean loop {fe} vo: ATE {rec['ate_rmse_m']} m, drops "
+            f"{rec['tracking_drops']}, min inliers {rec['min_inliers']}, "
+            f"frame p95 {rec['frame_p95_ms']} ms")
+        if not (np.isfinite(rec["ate_rmse_m"])
+                and rec["ate_rmse_m"] < CLEAN_ATE_BOUND):
+            fail(f"12g: clean loop {fe}: ATE {rec['ate_rmse_m']} m, want < "
+                 f"{CLEAN_ATE_BOUND}")
+    say(f"phase 12g ok: the clean loop on the card's own draws, every ATE < "
+        f"{CLEAN_ATE_BOUND} m ({card})")
+
+
+def phase_measure(card, timed, left, right, dev):
+    """Phase 12: 12a-12g, each timed as a phase of its own. Returns the
+    launches of the paths they drive (B2s's as ``sad_lr_costs``)."""
+    totals = {}
+    for name, phase, args in (
+            ("12a", phase_bench, (dev,)), ("12b", phase_table, (dev,)),
+            ("12c", phase_sgm_half, (left, right)),
+            ("12d", phase_sgm_bench, (dev,)), ("12e", phase_vectors, (dev,)),
+            ("12f", phase_probe, (dev,)),
+            ("12g", phase_clean_loop, (dev,))):
+        timed(name, phase, card, totals, *args)
+        _free()
+    return totals
+
+
 def sad_bound(name, maxd=64, px=H * W):
     """(bound_ms, bound_by) of one frame of ``px`` pixels (1080p unless
     given): two uint8 images in, the uint8 map (sad_wta), two int32 maps
@@ -2826,6 +3122,17 @@ def main() -> int:
     b2s_launches += tools.get("sad_lr_costs", 0)
     for name in ("sgm_aggregate", "sgm_transpose_add"):
         sgm_launches[name] += tools.get(name, 0)
+    from steroscopic_hardware_tpu_torch.utils.device import resolve_device
+
+    measure = phase_measure(card, timed, left, right, resolve_device("cuda"))
+    # phase 12's: bench, the kernel table, the sgm_half front end, the SGM
+    # stages, the golden vectors, the two serve_probe modes, the clean loop
+    for name in ("sad_wta", "sad_lr"):
+        launches[name] += measure.get(name, 0)
+    b2s_launches += measure.get("sad_lr_costs", 0)
+    for name in ("sgm_aggregate", "sgm_transpose_add"):
+        sgm_launches[name] += measure.get(name, 0)
+    fused_launches["sgm_epilogue"] += measure.get("sgm_epilogue", 0)
     say(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for name in ("sad_wta", "sad_lr"):

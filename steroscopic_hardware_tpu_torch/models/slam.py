@@ -17,9 +17,10 @@ A ``StereoVO`` owns an explicit ``torch.device``: "cuda" needs a usable GPU
 and raises without one; only an explicit "cpu" runs the plain versions.
 Each frame crosses to the device in one upload; the previous frame's
 (desc, valid, pts, ok) stay on the device between frames and only the
-frame's results come back. The RANSAC draws come from a
-``torch.Generator`` on the device, seeded from ``seed`` and the frame
-counter, so a run is reproducible. Frames tracked by the fused serve+track
+frame's results come back. The RANSAC draws come from a CPU
+``torch.Generator`` seeded from ``seed`` and the frame counter and are
+copied to the device (``gumbel_scores``), so a run is reproducible and
+the card draws the CPU's minimal sets. Frames tracked by the fused serve+track
 step (``runtime/fused.py``) land through ``ingest_external_frame``,
 ``seed_external`` and ``apply_track_result``.
 
@@ -33,7 +34,7 @@ solves on the VO's device; on a GPU the backend thread and the boot warmup
 launch on CUDA streams of their own while the frame thread keeps the
 default stream. Keyframe features stay numpy on the host, as in the JAX
 ``FrameState``, so the backend uploads its own inputs. Loop-closure RANSAC
-draws from the engine's own generator, reseeded by (seed + 0x5EED, the
+draws from the engine's own CPU generator, reseeded by (seed + 0x5EED, the
 keyframe's index) for each check and used only by the thread that runs
 loop closure (the frame thread in synchronous mode, the backend's in
 asynchronous mode): a resumed or asynchronous engine draws for a keyframe
@@ -243,7 +244,7 @@ class StereoVO:
         self.tracking_drops = 0
         self._last_xi_rel = np.zeros(6, np.float32)
         self.seed = int(seed)
-        self._gen = torch.Generator(device=self.device)
+        self._gen = torch.Generator()  # CPU: the same draws on every device
         self._ctr = 0
         # the previous frame's (desc, valid, pts, ok), resident on device
         self._prev_dev = None
@@ -403,9 +404,10 @@ class StereoVO:
 
 def frame_scores(gen: torch.Generator, seed: int, ctr: int, K: int,
                  device) -> torch.Tensor:
-    """The (hypotheses, K) RANSAC Gumbel scores of frame ``ctr``, drawn on
-    ``device`` from ``gen`` reseeded by (seed, ctr): the same draws for
-    the same frame in ``StereoVO.process`` and in the fused step."""
+    """The (hypotheses, K) RANSAC Gumbel scores of frame ``ctr`` on
+    ``device``, drawn from the CPU generator ``gen`` reseeded by (seed,
+    ctr): the same draws for the same frame in ``StereoVO.process`` and in
+    the fused step, on any device."""
     gen.manual_seed((seed << 32) + ctr)
     return gumbel_scores(N_HYPOTHESES, K, gen, device)
 
@@ -555,7 +557,7 @@ class StereoSLAM:
         self.backend_errors = 0
         # loop-closure RANSAC, reseeded per check (the frame thread owns
         # the VO's generator)
-        self._loop_gen = torch.Generator(device=self.device)
+        self._loop_gen = torch.Generator()
         _load_linalg(self.device)
         if self.async_backend:
             self._backend_thread = threading.Thread(
@@ -807,7 +809,7 @@ class StereoSLAM:
                 n += 1
             if stopped():
                 return n
-            gen = torch.Generator(device=dev)
+            gen = torch.Generator()
             pnp_ransac(torch.zeros((K, 3), device=dev),
                        torch.zeros((K, 2), device=dev), valid, self.cam.intr,
                        gumbel_scores(N_HYPOTHESES, K, gen.manual_seed(0),

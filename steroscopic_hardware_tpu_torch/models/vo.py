@@ -12,8 +12,9 @@ left-perturbed residual at zero; here it is the same derivative written
 out: d cam / d [rho, phi] = [I, -hat(cam)], chained with the pinhole's.
 ``pnp_ransac`` takes the (hypotheses, K) Gumbel scores that choose each
 hypothesis's minimal set as an argument, so a run is reproducible from
-the caller's ``torch.Generator`` (``gumbel_scores``) and a test can feed
-it the JAX package's own draws.
+the caller's CPU ``torch.Generator`` (``gumbel_scores`` draws on the host
+and copies the scores to the device, so a card draws what the CPU draws)
+and a test can feed it the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -102,10 +103,18 @@ def pnp_gn(pts_w, uv, weights, intr, xi0=None, *, iters: int = 10,
 
 def gumbel_scores(n_hypotheses: int, K: int, generator: torch.Generator,
                   device) -> torch.Tensor:
-    """(n_hypotheses, K) standard Gumbel draws from ``generator``."""
-    u = torch.rand((n_hypotheses, K), generator=generator, device=device)
+    """(n_hypotheses, K) standard Gumbel draws from the CPU ``generator``,
+    on ``device``. They are drawn and transformed on the host and copied
+    over (on a GPU one pinned, asynchronous copy), so every device gets
+    the CPU's bits: a device's own generator would draw other minimal
+    sets."""
+    u = torch.rand((n_hypotheses, K), generator=generator)
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2**-24)))
+    scores = -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2**-24)))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return scores.pin_memory().to(device, non_blocking=True)
+    return scores.to(device)
 
 
 def pnp_ransac(pts_w, uv, valid, intr, scores, *, min_set: int = 4,

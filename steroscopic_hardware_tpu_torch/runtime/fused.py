@@ -125,10 +125,10 @@ class FusedServeTrack:
             frontend=vo.frontend)
         # the VO's per-frame RANSAC draws (seed, frame counter): a batch of
         # one draws what StereoVO.process draws for the same frame. The
-        # VO's own generator never runs in fused mode; this one is the
-        # compute thread's.
+        # VO's own generator never runs in fused mode; this one (on the
+        # CPU, as the VO's) is the compute thread's.
         self.seed = vo.seed
-        self._gen = torch.Generator(device=self.device)
+        self._gen = torch.Generator()
         bow = getattr(slam, "_bow", None)
         self._words = bow.words if bow is not None else None
         self.bow_bytes = 4 * bow.n_words if bow is not None else 0

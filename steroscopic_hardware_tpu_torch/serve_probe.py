@@ -16,12 +16,19 @@ growth of the pipeline's ``device_s`` (CUDA events around each serve step)
 over the window's wall time, so the device idles ``1 - device_busy`` of it.
 With ``--out`` the rows are also written there as a JSON list.
 
+``device-colorize-preview-2`` is serve_bench's ``sad-dev-light2``:
+``--device-colorize --preview-scale 2``, the colorized preview made and
+downscaled on the device.
+
 The modes of ``tools/serve_bench.py`` beyond the static-source ones:
 
-* ``slam`` / ``slam-sgm``: ``--slam --loop-closure`` (the fused
-  serve+track step; ``--backend sgm`` serves SGM depth beside the SAD
-  front end's tracking). The window opens once ``/slam`` reads ``warm``;
-  the row adds SLAM frames and poses per second and the backend's queue.
+* ``slam`` / ``slam-sgm`` / ``slam-sgm-half``: ``--slam --loop-closure``
+  (the fused serve+track step; ``--backend sgm`` serves SGM depth beside
+  the SAD front end's tracking; ``--slam-frontend sgm_half`` tracks on
+  half-resolution census + SGM disparities, serve_bench's ``slam-1080p``
+  at the default 1080p), with ``--cx`` / ``--cy`` at the frame centre.
+  The window opens once ``/slam`` reads ``warm``; the row adds SLAM
+  frames and poses per second and the backend's queue.
 * ``dual-rig``: a second rig (``--rig rig2``) on a second seeded pair,
   both rigs' fps in one window. Both pipelines enqueue on the card's one
   current stream, so each rig's ``device_s`` spans the other's work too:
@@ -48,7 +55,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 import urllib.request
@@ -57,18 +63,23 @@ import numpy as np
 
 from steroscopic_hardware_tpu_torch.io.png import write_png
 from steroscopic_hardware_tpu_torch.runtime import wire
+from steroscopic_hardware_tpu_torch.utils.device import card_name
 
 # mode name -> (extra server flags, source fps multiplier)
 MODES = {
     "default": ([], 1),
     "device-colorize": (["--device-colorize"], 1),
     "preview-scale-2": (["--preview-scale", "2"], 1),
+    "device-colorize-preview-2": (["--device-colorize", "--preview-scale",
+                                   "2"], 1),
     "lr-check": (["--lr-check"], 1),
     "sources-2x": ([], 2),
     "sgm": (["--backend", "sgm"], 1),
     "sgm-lr-check": (["--backend", "sgm", "--lr-check"], 1),
     "slam": (["--slam", "--loop-closure"], 1),
     "slam-sgm": (["--slam", "--loop-closure", "--backend", "sgm"], 1),
+    "slam-sgm-half": (["--slam", "--loop-closure", "--slam-frontend",
+                       "sgm_half"], 1),
     "dual-rig": ([], 1),
     "tcp-raw": ([], 1),
     "tcp-range": ([], 1),
@@ -221,13 +232,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the rows here")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    else:
-        card = "cpu"
+    card = card_name(args.device)
     print(f"device: {card}", flush=True)
     rows = []
     h, w = args.height, args.width

@@ -45,10 +45,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
+
+from steroscopic_hardware_tpu_torch.utils.device import card_name
 
 H, W = 1080, 1920
 SEED = 20261016
@@ -418,10 +419,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sgm_probe needs a CUDA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    card = card_name("cuda")
     print(card, flush=True)
     rows = []
     for maxd in (int(m) for m in args.maxd.split(",")):

@@ -57,7 +57,6 @@ import argparse
 import copy
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -65,6 +64,8 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from steroscopic_hardware_tpu_torch.utils.device import card_name
 
 # chip_smoke.py phase 7's StereoSLAM settings (examples/run_kitti_vo.py's VO)
 SLAM = dict(block_size=9, max_disparity=128, max_keypoints=512,
@@ -347,16 +348,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the rows here")
     args = ap.parse_args(argv)
 
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            print("slam_probe: no usable CUDA device", file=sys.stderr)
-            return 1
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    else:
-        card = "cpu"
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("slam_probe: no usable CUDA device", file=sys.stderr)
+        return 1
+    card = card_name(args.device)
     print(f"device: {card}", flush=True)
     rows = probe_pose_graph(args.device, args.pg_seeds)
     for row in rows:

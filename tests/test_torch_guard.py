@@ -26,6 +26,7 @@ _NO_JAX_SCRIPT = r"""
 import importlib, json, pkgutil, sys, urllib.request
 import numpy as np
 import torch
+torch.set_num_threads(1)  # small CPU ops beside the suite's other workers
 import steroscopic_hardware_tpu_torch as port
 from steroscopic_hardware_tpu_torch.__main__ import build_app
 from steroscopic_hardware_tpu_torch.models.blockmatch import (
@@ -98,6 +99,28 @@ a = bench_scaling.parse_args(["--device", "cpu", "--height", "16",
 assert len(list(bench_scaling.bench_batch_axis(a, torch.device("cpu")))) == 4
 fn, pair = entry(device="cpu")
 assert fn(*pair).shape == (480, 640)
+# the measurement tools
+import tempfile
+from steroscopic_hardware_tpu_torch import bench
+from steroscopic_hardware_tpu_torch.io.png import write_png
+from steroscopic_hardware_tpu_torch.tools import (
+    bench_table, gen_vectors, sgm_bench)
+l, r = bench.load_pair(bench.parse_args(["--synthetic", "--device", "cpu"]))
+assert l.shape == r.shape == (480, 640)
+pair = bench_table.seeded_pairs("cpu")
+for name, n, make, _ in bench_table.specs():
+    if name in ("640x480 b7 d64 plain", "640x480 SGM d64 subpixel",
+                "640x480 SLAM track SGMhalf d64 (pyramid census frontend)"):
+        step, carry, _, _ = make(lambda h, w: pair(24, 64))
+        step(carry)
+assert len(sgm_bench.bench(torch.device("cpu"), size=(40, 24), maxd=16,
+                           frames=1, out=lambda s: None)) == 22
+with tempfile.TemporaryDirectory() as tmp:
+    write_png(tmp + "/L.png", left)
+    write_png(tmp + "/R.png", right)
+    assert gen_vectors.main([tmp + "/v", "--left", tmp + "/L.png", "--right",
+                             tmp + "/R.png", "--n", "1", "--size", "12",
+                             "--block", "3", "--disp", "8"]) == 0
 print("foreign modules:", sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or (
@@ -111,8 +134,9 @@ def test_port_never_imports_jax():
     CPU visual odometry run, a three-frame SLAM run with loop closure, the
     server with both backends (and with --slam), the server fed by two TCP
     emitters in the lzma codec, the ``run_stream`` example, the sweep, the
-    SLAM stress tool, the batch-axis scaling run and ``entry()`` load
-    neither jax nor any module of the JAX package."""
+    SLAM stress tool, the batch-axis scaling run, ``entry()``, ``bench``,
+    steps of the kernel table's rows, the SGM stage rows and the golden
+    vectors load neither jax nor any module of the JAX package."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
@@ -451,8 +475,9 @@ def test_stereo_slam_and_fused_step_on_the_card(cuda):
     the fused serve+track step launches sad_wta once for the serve and
     sad_lr (with costs) once per tracked frame, its serve half equal to
     the unfused serve. The trajectories themselves are not compared: the
-    card and the CPU draw different RANSAC scores, and on this small frame
-    the closures they find moved a mid-sequence pose by 0.126 m."""
+    backend's float32 solves on two devices need not find the same
+    closures (when the card drew its own RANSAC scores, they moved a
+    mid-sequence pose by 0.126 m on this small frame)."""
     from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
     from steroscopic_hardware_tpu_torch.models.slam import (
         StereoSLAM,
@@ -1146,3 +1171,85 @@ def test_clean_loop_on_cpu_draws_tracks_as_the_cpu(cuda):
     np.testing.assert_allclose(card.positions(), cpu.positions(), rtol=0,
                                atol=1e-4)
     assert slam.ate_rmse(card.positions(), gt) < 0.1
+
+
+def test_cpu_draws_are_unchanged():
+    """The RANSAC scores of a CPU StereoVO for frame ``ctr`` are the
+    standard Gumbel transform of ``torch.rand`` from a CPU generator
+    seeded with (seed << 32) + ctr, bit for bit (written out here, so a
+    change to the draws shows)."""
+    from steroscopic_hardware_tpu_torch.models.slam import (
+        N_HYPOTHESES,
+        StereoCamera,
+        StereoVO,
+    )
+
+    vo = StereoVO(StereoCamera(100.0, 100.0, 32.0, 16.0, 0.4), seed=5,
+                  max_keypoints=64, device="cpu")
+    for ctr in (1, 2, 17):
+        gen = torch.Generator().manual_seed((5 << 32) + ctr)
+        u = torch.rand((N_HYPOTHESES, 64), generator=gen)
+        u = u.clamp(torch.finfo(torch.float32).tiny, 1.0 - 2**-24)
+        got = vo._ransac_scores(ctr)
+        assert got.device.type == "cpu"
+        assert torch.equal(got, -torch.log(-torch.log(u)))
+
+
+@pytest.mark.gpu
+def test_clean_loop_on_its_own_draws_tracks_as_the_cpu(cuda):
+    """The suite's clean loop through StereoVO on the card with the
+    engine's own RANSAC draws (drawn on the host, copied to the card)
+    tracks as the CPU run does: the same inliers and drops on every frame,
+    camera centres within 1e-4 m, ATE below 0.1 m."""
+    from steroscopic_hardware_tpu_torch.models import slam
+    from steroscopic_hardware_tpu_torch.tools import run_synth_slam as tool
+
+    args = tool.parse_args(["--frames", "40"])
+    args.device = cuda
+    a = tool.condition_args(args, dict(tool.CONDITIONS)["clean loop"], "sad")
+    cam, frames, gt = tool.render_sequence(a)
+    card = tool.make_engine("vo", a, cam)
+    a.device = torch.device("cpu")
+    cpu = tool.make_engine("vo", a, cam)
+    for left, right in frames:
+        card.process(left, right)
+        cpu.process(left, right)
+    assert card.n_inliers == cpu.n_inliers
+    assert card.tracking_drops == cpu.tracking_drops
+    np.testing.assert_allclose(card.positions(), cpu.positions(), rtol=0,
+                               atol=1e-4)
+    assert slam.ate_rmse(card.positions(), gt) < 0.1
+
+
+@pytest.mark.gpu
+def test_fused_step_draws_as_the_cpu(cuda, monkeypatch):
+    """The fused serve+track step on the card draws, for each frame of its
+    batch, the scores a CPU generator draws for that frame, bit for bit."""
+    from steroscopic_hardware_tpu_torch.models.blockmatch import BlockMatcher
+    from steroscopic_hardware_tpu_torch.models.slam import StereoSLAM
+    from steroscopic_hardware_tpu_torch.runtime import fused
+    from steroscopic_hardware_tpu_torch.utils.params import Parameters
+    from steroscopic_hardware_tpu_torch.vo import synthetic_sequence
+
+    cam, pairs, _ = synthetic_sequence(4, trajectory="loop", size=(120, 400))
+    drawn = []
+
+    def recorded(gen, seed, ctr, K, device):
+        scores = frame_scores(gen, seed, ctr, K, device)
+        drawn.append((seed, ctr, K, scores))
+        return scores
+
+    frame_scores = fused.frame_scores
+    monkeypatch.setattr(fused, "frame_scores", recorded)
+    matcher = BlockMatcher(device=cuda)
+    matcher.set_params(Parameters(block_size=7, max_disparity=48))
+    step = fused.FusedServeTrack(matcher, StereoSLAM(
+        cam, device=cuda, block_size=7, max_disparity=48, max_keypoints=128,
+        seed=3))
+    step.step(pairs[:1], fetch_all=True, colorize_dev=False)
+    step.step(pairs[1:4], fetch_all=True, colorize_dev=False)
+    assert [ctr for _, ctr, _, _ in drawn] == [0, 1, 2, 3]
+    for seed, ctr, K, scores in drawn:
+        assert scores.is_cuda and seed == 3
+        want = frame_scores(torch.Generator(), seed, ctr, K, "cpu")
+        assert torch.equal(scores.cpu(), want)

@@ -162,7 +162,7 @@ exit code:
      ``check_from_raw``, exactly 1 + 2n sad_wta and one sad_lr launches a
      configuration; Mpix/s and kernel ms printed per configuration. 11b:
      ``run_sweep --engine sgm --synthetic`` over maxD 16-256, the map ==
-     the plain chain at d 16, 128, 144 and 256 (both sides of B3's staged
+     the plain chain at d 16, 128, 144 and 256 (both sides of B3's wide
      kernel at 136), two sgm_aggregate and two sgm_transpose_add a frame.
      11c: ``run_synth_slam`` on the photometric loop (40 frames, noise 2,
      the tool's 320x240 rig), front ends sad and sgm, engines vo and
@@ -215,12 +215,14 @@ SEED = 20261016
 CSRC = "steroscopic_hardware_tpu_torch/csrc/"
 SOURCE = {"sad_wta": CSRC + "sad.cu", "sad_lr": CSRC + "sad.cu",
           "sgm_aggregate": CSRC + "sgm.cu",
+          "sgm_aggregate_wide": CSRC + "sgm.cu",
           "sgm_transpose_add": CSRC + "sgm.cu",
           "sgm_epilogue": CSRC + "sgm.cu"}
 REPLACES = {
     "sad_wta": "steroscopic_hardware_tpu/ops/sad_pallas.py:121",
     "sad_lr": "steroscopic_hardware_tpu/ops/sad_pallas.py:427",
     "sgm_aggregate": "steroscopic_hardware_tpu/ops/sgm.py:172",
+    "sgm_aggregate_wide": "steroscopic_hardware_tpu/ops/sgm.py:172",
     "sgm_transpose_add": "steroscopic_hardware_tpu/ops/sgm.py:415",
     "sgm_epilogue": "steroscopic_hardware_tpu/ops/sgm.py:550",
 }
@@ -232,8 +234,8 @@ F32_OPS = 67e12
 I32_OPS = 132 * 64 * 1.98e9
 SGM_TOL = 1e-5  # float maps, kernel vs plain (both round as torch does)
 # kernels whose instantiations must not spill (ptxas, phase 1)
-SPILL_CHECKED = ("sad_kernel", "sgm_transpose_add_kernel",
-                 "sgm_epilogue_kernel")
+SPILL_CHECKED = ("sad_kernel", "sgm_aggregate_wide_kernel",
+                 "sgm_transpose_add_kernel", "sgm_epilogue_kernel")
 
 
 def fail(msg: str):
@@ -274,7 +276,8 @@ def phase_build():
     spilled = [u for u in usage
                if u[2] and any(k in u[0] for k in SPILL_CHECKED)]
     if spilled:
-        fail(f"SAD sweep, B4 or B5 instantiations spill: {spilled}")
+        fail(f"SAD sweep, B3's wide kernel, B4 or B5 instantiations "
+             f"spill: {spilled}")
     say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; nvcc build "
         f"{seconds:.2f} s for sm_90a; ptxas: "
@@ -653,8 +656,8 @@ def phase_sgm_exact():
     from steroscopic_hardware_tpu_torch.ops import sgm
 
     rng = np.random.default_rng(SEED + 3)
-    errs = {"sgm_aggregate": 0.0, "sgm_transpose_add": 0.0,
-            "sgm_epilogue": 0.0}
+    errs = {"sgm_aggregate": 0.0, "sgm_aggregate_wide": 0.0,
+            "sgm_transpose_add": 0.0, "sgm_epilogue": 0.0}
     results = []
 
     def check(name, what, got, want, is_float):
@@ -682,9 +685,8 @@ def phase_sgm_exact():
                 c = cost.to(ind)
                 got = sgm.aggregate_axis(c, *P, out_dtype=outd)
                 want = sgm.aggregate_axis_plain(c, *P, out_dtype=outd)
-                check("sgm_aggregate",
-                      f"{tuple(shape)} {ind}->{outd} P{P}", got, want,
-                      outd == f32)
+                check(_agg_name(D), f"{tuple(shape)} {ind}->{outd} P{P}",
+                      got, want, outd == f32 and D <= WIDE_FROM - 1)
                 del c, got, want
             del cost
             _free()
@@ -722,15 +724,20 @@ def phase_sgm_exact():
             cost = vol((D, S, K), 25)
             for ind, outd, P in tiers:
                 c = cost.to(ind)
-                check("sgm_aggregate", f"edge ({D}, {S}, {K}) {ind}->{outd}",
+                check(_agg_name(D), f"edge ({D}, {S}, {K}) {ind}->{outd}",
                       sgm.aggregate_axis(c, *P, out_dtype=outd),
                       sgm.aggregate_axis_plain(c, *P, out_dtype=outd),
-                      outd == f32)
+                      outd == f32 and D < WIDE_FROM)
+    check_wide_edges(rng, tiers, check)
     edges = results[n_edges:]
     del results[n_edges:]
+    wide = [r for r in edges if r.startswith("sgm_aggregate_wide")]
     results.append(f"sgm_aggregate at {len(edges)} plan edges (D 1..288, S "
-                   f"1 / 2 / 7, K 37 / 45 / 33, six tiers): "
-                   f"{max(float(r.rsplit(': ', 1)[1]) for r in edges)}")
+                   f"1 / 2 / 7, K 37 / 45 / 33, six tiers; the wide kernel "
+                   f"also S 3 / 4 / 9 at K 38 / 1 / 1081 and at unaligned "
+                   f"bases): {max(float(r.rsplit(': ', 1)[1]) for r in edges)}"
+                   f", D > 136 ({len(wide)} cases): "
+                   f"{max(float(r.rsplit(': ', 1)[1]) for r in wide)}")
     n_b4 = len(results)
     check_transpose_widths(rng, check)
     b4 = results[n_b4:]
@@ -750,6 +757,58 @@ def phase_sgm_exact():
     say(f"phase 2s ok: SGM kernel vs plain, max abs error per case "
         f"({n_edges + len(edges)} cases; {'; '.join(results)})")
     return errs
+
+
+WIDE_FROM = 137  # the first D of B3's wide kernel
+WIDE_EDGE_D = (137, 144, 145, 160, 161, 192, 193, 224, 225, 256, 257, 272,
+               273, 288)
+
+
+def _agg_name(D):
+    """The errors' key of B3's kernel at D: exact for the wide kernel."""
+    return "sgm_aggregate_wide" if D >= WIDE_FROM else "sgm_aggregate"
+
+
+def check_wide_edges(rng, tiers, check):
+    """B3's wide kernel at the edges of its plan, every tier, exactly: D at
+    each chunk boundary (5 / 7 / 9 d values a lane); S 3, 4 and 9 (the
+    raw halves read back the step after they are stored, copied at the
+    crossing, and loaded ahead); K of 38 (a uint8 row pitch of 2 mod 4
+    bytes: element copies), 1 and 1081 (ragged against blocks of 4, 8
+    and 16 columns); and a cost and out one element off their alignment
+    (element copies of both)."""
+    from steroscopic_hardware_tpu_torch import _kernels
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    for D in WIDE_EDGE_D:
+        for S, K in ((3, 38), (4, 1), (9, 1081)):
+            cost = torch.from_numpy(
+                rng.integers(0, 25, (D, S, K), dtype=np.uint8)).cuda()
+            for ind, outd, P in tiers:
+                c = cost.to(ind)
+                check("sgm_aggregate_wide",
+                      f"edge ({D}, {S}, {K}) {ind}->{outd}",
+                      sgm.aggregate_axis(c, *P, out_dtype=outd),
+                      sgm.aggregate_axis_plain(c, *P, out_dtype=outd), False)
+    D, S, K = 257, 7, 40
+    flat = torch.from_numpy(
+        rng.integers(0, 25, (D * S * K + 8,), dtype=np.uint8)).cuda()
+    for ind, outd, P in tiers:
+        c = flat.to(ind)[1:1 + D * S * K].view(D, S, K)
+        out = torch.empty(D * S * K + 1, dtype=outd, device="cuda")[1:]
+        got = out.view(D, S, K)
+        plan = _kernels.sgm_aggregate_plan(D, S, K, _kernels._sms(c.device),
+                                           c.element_size(),
+                                           got.element_size())
+        lib = _kernels.load()
+        err = lib.sgm_aggregate(
+            c.data_ptr(), got.data_ptr(), D, S, K, _kernels._TYPE_CODES[ind],
+            _kernels._TYPE_CODES[outd], *P, *plan, None,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"sgm_aggregate_wide refused unaligned bases ({err})")
+        check("sgm_aggregate_wide", f"unaligned ({D}, {S}, {K}) {ind}->{outd}",
+              got, sgm.aggregate_axis_plain(c, *P, out_dtype=outd), False)
 
 
 def check_transpose_widths(rng, check):
@@ -1058,7 +1117,46 @@ def phase_sgm_times(card, maxd=64):
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} "
             f"({card})")
         _free()
+    del cost_t, cost, agg_v, agg_ht, agg_v8, agg_ht8, agg_v32, agg_ht32
+    _free()
+    out += wide_times(card)
     say("phase 5s ok")
+    return out
+
+
+WIDE_MAXD = 256
+# the SGM kernels whose launches the main path's phases add up (B3 counts
+# both its kernels, sgm_aggregate_wide the wide kernel's share)
+SGM_COUNTED = ("sgm_aggregate", "sgm_aggregate_wide", "sgm_transpose_add")
+WIDE_PLAIN_REPS = dict(warmup=0, reps=1)  # the plain scan at d256: ~1 s
+
+
+def wide_times(card, maxd=WIDE_MAXD):
+    """B3's wide kernel at 1080p d256 on the served chain's two passes,
+    beside its plain version (one run) and the byte bound."""
+    from steroscopic_hardware_tpu_torch.ops import sgm
+
+    rng = np.random.default_rng(SEED + 5)
+    D = maxd + 1
+    V = D * H * W
+    bf16 = torch.bfloat16
+    cost_t = torch.from_numpy(
+        rng.integers(0, 25, (D, W, H), dtype=np.uint8)).cuda()
+    cost = sgm.transpose_add(cost_t, out_dtype=bf16)
+    out = []
+    for what, c, nbytes in (("vertical bf16->bf16", cost, V * (2 + 2)),
+                            ("horizontal u8->bf16", cost_t, V * (1 + 2))):
+        ms = _time_ms(lambda: sgm.aggregate_axis(c, 1.0, 8.0, out_dtype=bf16))
+        plain_ms = _time_ms(lambda: sgm.aggregate_axis_plain(
+            c, 1.0, 8.0, out_dtype=bf16), **WIDE_PLAIN_REPS)
+        bound_ms, bound_by = _bound(nbytes, 2 * 8 * V, F32_OPS)
+        out.append({"name": "sgm_aggregate_wide", "stage": what, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+        say(f"phase 5s: sgm_aggregate_wide {what} 1080p d{maxd}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB), library none ({card})")
+        _free()
     return out
 
 
@@ -2532,7 +2630,7 @@ def phase_ingest(card):
 # -- phase 11: the tools (sweep, SLAM stress suite, scaling, entry hook) -----
 
 SWEEP_N = 2            # timed computes (and kernel steps) a configuration
-SGM_PLAIN_AT = (16, 128, 144, 256)  # both sides of B3's staged kernel at 136
+SGM_PLAIN_AT = (16, 128, 144, 256)  # both sides of B3's wide kernel at 136
 SUITE_CONDITION = "photometric loop"
 SUITE_FRAMES = 40
 SUITE_ENGINES = ("vo", "vo+ba+loop")
@@ -2625,7 +2723,8 @@ def phase_sgm_sweep(card, totals):
     for rec, out, _ in run_sweep.sweep(pairs, engine="sgm", n=SWEEP_N,
                                        device="cuda"):
         d = rec["disp"]
-        _add(totals, _launch_gate(f"11b d{d}", want))
+        wide = {"sgm_aggregate_wide": 2 * frames} if d + 1 >= WIDE_FROM else {}
+        _add(totals, _launch_gate(f"11b d{d}", {**want, **wide}))
         if d in SGM_PLAIN_AT:
             with _plain_chain():
                 plain = sgm_one(L, R, max_disparity=d, p1=1.0, p2=8.0,
@@ -2641,8 +2740,8 @@ def phase_sgm_sweep(card, totals):
         f"{r['disp']}: {r['ms']:.2f}, {r['mpix_s']:.2f}, "
         f"{r['kernel_ms']:.4f}" for r in rows))
     say(f"phase 11b ok: SGM sweep maxD 16..256 at 1080p, == plain chain at "
-        f"{SGM_PLAIN_AT}, 2 sgm_aggregate and 2 sgm_transpose_add a frame "
-        f"({card})")
+        f"{SGM_PLAIN_AT}, 2 sgm_aggregate (the wide kernel's from maxD 144) "
+        f"and 2 sgm_transpose_add a frame ({card})")
 
 
 def phase_suite(card, totals):
@@ -3101,18 +3200,18 @@ def main() -> int:
     launches["sad_lr"] += cal["lr"]["sad_lr"]
     b2s_launches += (slam_launches["sad_lr"] + serve_slam["sad_lr"]
                      + cal["slam"]["sad_lr"])
-    for name in ("sgm_aggregate", "sgm_transpose_add"):
+    for name in SGM_COUNTED:
         sgm_launches[name] += cal["sgm"][name]
     # phase 9's: every rank's sharded SAD, SGM and StereoSLAM(pg_mesh=)
     launches["sad_wta"] += par["sad_wta"]
     b2s_launches += par["sad_lr"]
-    for name in ("sgm_aggregate", "sgm_transpose_add"):
+    for name in SGM_COUNTED:
         sgm_launches[name] += par[name]
     fused_launches["sgm_epilogue"] += par["sgm_epilogue"]
     # phase 10's: the batches served from TCP and serial ingest
     launches["sad_wta"] += ingest["sad_wta"]
     launches["sad_lr"] += ingest["sad_lr"]
-    for name in ("sgm_aggregate", "sgm_transpose_add"):
+    for name in SGM_COUNTED:
         sgm_launches[name] += ingest[name]
     _free()
     tools = phase_tools(card, timed)
@@ -3120,7 +3219,7 @@ def main() -> int:
     for name in ("sad_wta", "sad_lr"):
         launches[name] += tools.get(name, 0)
     b2s_launches += tools.get("sad_lr_costs", 0)
-    for name in ("sgm_aggregate", "sgm_transpose_add"):
+    for name in SGM_COUNTED:
         sgm_launches[name] += tools.get(name, 0)
     from steroscopic_hardware_tpu_torch.utils.device import resolve_device
 
@@ -3130,7 +3229,7 @@ def main() -> int:
     for name in ("sad_wta", "sad_lr"):
         launches[name] += measure.get(name, 0)
     b2s_launches += measure.get("sad_lr_costs", 0)
-    for name in ("sgm_aggregate", "sgm_transpose_add"):
+    for name in SGM_COUNTED:
         sgm_launches[name] += measure.get(name, 0)
     fused_launches["sgm_epilogue"] += measure.get("sgm_epilogue", 0)
     say(f"phase seconds: {json.dumps(seconds)}")
@@ -3149,13 +3248,17 @@ def main() -> int:
         "name": "sad_lr_costs", "route": "cuda", "source": SOURCE["sad_lr"],
         "replaces": "steroscopic_hardware_tpu/ops/sad_pallas.py:622",
         "launches": b2s_launches, **b2s, "library_ms": None})
-    # the row of each SGM kernel: its stage on the served (unfused) chain,
-    # and the fused epilogue for sgm_epilogue
+    # the row of each SGM kernel: its stage on the served (unfused) chain
+    # (B3's lane-group kernel at d64, its wide kernel at d256, each with
+    # its own launches), and the fused epilogue for sgm_epilogue
     rows = {"sgm_aggregate": "vertical bf16->bf16",
+            "sgm_aggregate_wide": "vertical bf16->bf16",
             "sgm_transpose_add": "summed volume bf16+bf16->bf16",
             "sgm_epilogue": "u8 x2 -> f32 subpixel"}
+    sgm_launches["sgm_aggregate"] -= sgm_launches["sgm_aggregate_wide"]
     for name, stage in rows.items():
-        t = next(r for r in sgm_times if r["stage"] == stage)
+        t = next(r for r in sgm_times
+                 if r["stage"] == stage and r["name"] == name)
         n = (fused_launches if name == "sgm_epilogue" else sgm_launches)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],

@@ -43,9 +43,11 @@ MAX_BLOCK_SIZE = 63
 MAX_DISPARITY = 511
 
 # Launches per kernel since the last reset_launches(); the wrappers add one
-# where they launch and nowhere else.
+# where they launch and nowhere else. sgm_aggregate counts both of B3's
+# kernels, sgm_aggregate_wide the wide kernel's share (D > 136).
 launches = {"sad_wta": 0, "sad_lr": 0, "sgm_aggregate": 0,
-            "sgm_transpose_add": 0, "sgm_epilogue": 0}
+            "sgm_aggregate_wide": 0, "sgm_transpose_add": 0,
+            "sgm_epilogue": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -129,7 +131,8 @@ def load() -> ctypes.CDLL:
             lib.sad_lr.restype = i32
             f32 = ctypes.c_float
             lib.sgm_aggregate.argtypes = ([ptr] * 2 + [i32] * 5
-                                          + [f32, f32] + [i32] * 5 + [ptr])
+                                          + [f32, f32] + [i32] * 6
+                                          + [ptr, ptr])
             lib.sgm_aggregate.restype = i32
             lib.sgm_transpose_add.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
             lib.sgm_transpose_add.restype = i32
@@ -336,26 +339,53 @@ def _check_volume(t, name, ndim=3):
 
 # B3's two kernels (csrc/sgm.cu). The lane-group kernel: the d values per
 # lane compiled there and its largest block; 8 lanes of 17 hold D <= 136.
-# Above, the staged kernel: a warp per (direction, scan column), up to 9 d
-# values a lane, 8 columns a block of 512 threads.
+# Above, the wide kernel: a warp per scan column (both directions), 5, 7
+# or 9 d values a lane, 4 or 8 columns a block, the cost staged through a
+# ring of WIDE_RINGS slots in shared memory.
 AGG_DPTS = (5, 9, 17)
 AGG_BLOCK_MAX = 256
 AGG_LANES_MAX_D = 8 * AGG_DPTS[-1]
-AGG_MAX_D = 32 * 9
-STAGED_COLUMNS, STAGED_BLOCK = 8, 512
+WIDE_DPTS = (5, 7, 9)
+WIDE_COLUMNS = (4, 8, 16)
+WIDE_RINGS = (3, 4, 5, 6)
+WIDE_RING = 4
+WIDE_OUT_RING = 3
+WIDE_RAW_RING = 3
+WIDE_PACE_SLOTS = 8   # the int32 counters the wide kernel paces blocks with
+AGG_MAX_D = 32 * WIDE_DPTS[-1]
+
+
+def wide_smem(dpt: int, columns: int, in_size: int, out_size: int,
+              ring: int) -> int:
+    """Shared memory of one block of the wide kernel (csrc/sgm.cu
+    ``wide_geom``): its mbarriers; ``ring`` slots of both directions' cost
+    rows and WIDE_OUT_RING slots of their out rows, a row's 4-byte units
+    each in a region of 32 * dpt words and a pad of 32 / units words; and
+    WIDE_RAW_RING slots of both directions' raw halves, packed."""
+    def half(size):  # one direction's rows
+        units = columns * size // 4
+        return units * 4 * (32 * dpt + (32 // units if units > 1 else 0))
+    bars = 16 * -(-8 * (2 * ring + 2 * WIDE_OUT_RING) // 16)
+    raw = 2 * 32 * dpt * columns * out_size
+    return (bars + ring * 2 * half(in_size) + WIDE_OUT_RING * 2 * half(out_size)
+            + WIDE_RAW_RING * raw)
 
 
 class AggregatePlan(NamedTuple):
-    staged: int  # 1: the staged kernel; 0: the lane-group kernel
+    wide: int    # 1: the wide kernel; 0: the lane-group kernel
     lanes: int   # G: lanes per scan column, a power of two dividing 32
     dpt: int     # d values per lane; lanes * dpt >= D
-    block: int   # threads per block
+    block: int   # threads per block (wide: 32 per scan column)
     grid: int    # blocks: exactly enough for K columns
+    ring: int    # wide: slots of the cost ring; 0 for the lane-group kernel
 
 
-def sgm_aggregate_plan(D: int, S: int, K: int, sms: int) -> AggregatePlan:
-    """Launch plan of ``sgm_aggregate`` for a (D, S, K) volume on a card of
-    ``sms`` multiprocessors.
+def sgm_aggregate_plan(D: int, S: int, K: int, sms: int, in_size: int = 2,
+                       out_size: int = 2) -> AggregatePlan:
+    """Launch plan of ``sgm_aggregate`` for a (D, S, K) volume of
+    ``in_size``-byte costs stored in ``out_size``-byte values (the served
+    vertical pass's bfloat16 by default) on a card of ``sms``
+    multiprocessors.
 
     Up to D = 136 the lane-group kernel. A warp spans 32 / lanes scan
     columns, so each of its loads and stores touches rows of 32 / lanes
@@ -366,15 +396,30 @@ def sgm_aggregate_plan(D: int, S: int, K: int, sms: int) -> AggregatePlan:
     of two (32..256 threads) that still gives 7/8 as many blocks as SMs:
     about one block per SM, each block's columns aligned to whole 32-byte
     sectors of a row. Above D = 136 the lane-group kernel would need 16
-    lanes a column and loses to the staged kernel, which takes the rest.
-    Raises ValueError for a volume neither kernel takes."""
+    lanes a column; the wide kernel takes the rest: 32 lanes of the
+    smallest of 5, 7, 9 d values that covers D, a ring of WIDE_RING slots,
+    and the most columns a block (16, 8, 4) whose shared memory fits and
+    whose grid still fills half the SMs. An SM's step is paced by its
+    memory instructions, whatever their width, and its issue, so wider
+    rows move more columns a step (1080p d256 at ring 4, `sgm_probe
+    --plans`, PR 16: vertical bf16 -> bf16 4.14 ms with 16 columns, 5.57
+    with 8, 9.59 with 4; horizontal u8 -> bf16 6.70 / 7.96 / 10.15), while
+    a grid short of the SMs leaves the rest idle. Rings of 3, 5 and 6
+    slots were no faster than 4. Raises ValueError for a volume neither
+    kernel takes."""
     if D > AGG_MAX_D:
         raise ValueError(f"D = {D} above the kernel's {AGG_MAX_D}")
     if min(D, S, K) < 1:
         raise ValueError(f"empty volume {(D, S, K)}")
     if D > AGG_LANES_MAX_D:
-        return AggregatePlan(1, 32, -(-D // 32), STAGED_BLOCK,
-                             -(-K // STAGED_COLUMNS))
+        dpt = min(n for n in WIDE_DPTS if 32 * n >= D)
+        for cols in sorted(WIDE_COLUMNS, reverse=True):
+            if cols == WIDE_COLUMNS[0] or (
+                    -(-K // cols) >= sms // 2
+                    and wide_smem(dpt, cols, in_size, out_size,
+                                  WIDE_RING) <= SMEM_LIMIT):
+                break
+        return AggregatePlan(1, 32, dpt, 32 * cols, -(-K // cols), WIDE_RING)
     if D * S * K >= 2 ** 32:
         raise ValueError(f"volume {(D, S, K)} has 2^32 elements or more")
     lanes = 4 if D <= 4 * 9 else 8
@@ -383,7 +428,7 @@ def sgm_aggregate_plan(D: int, S: int, K: int, sms: int) -> AggregatePlan:
     while (block < AGG_BLOCK_MAX
            and -(-K * lanes // (2 * block)) * 8 >= 7 * sms):
         block *= 2
-    return AggregatePlan(0, lanes, dpt, block, -(-K // (block // lanes)))
+    return AggregatePlan(0, lanes, dpt, block, -(-K // (block // lanes)), 0)
 
 
 def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
@@ -395,16 +440,23 @@ def sgm_aggregate(cost, p1: float, p2: float, out_dtype):
                          f"got {out_dtype}")
     D, S, K = cost.shape
     sms = torch.cuda.get_device_properties(cost.device).multi_processor_count
-    plan = sgm_aggregate_plan(D, S, K, sms)
+    plan = sgm_aggregate_plan(D, S, K, sms, cost.element_size(),
+                              out_dtype.itemsize)
     with torch.cuda.device(cost.device):
         lib = load()
         out = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
+        # the wide kernel's pacing counters, zeroed on the stream before it
+        pace = (torch.zeros(WIDE_PACE_SLOTS, dtype=torch.int32,
+                            device=cost.device) if plan.wide else None)
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         err = lib.sgm_aggregate(cost.data_ptr(), out.data_ptr(), D, S, K,
                                 in_type, _TYPE_CODES[out_dtype], float(p1),
-                                float(p2), *plan, stream)
+                                float(p2), *plan,
+                                None if pace is None else pace.data_ptr(),
+                                stream)
     _raise_on(lib, err, "sgm_aggregate")
     launches["sgm_aggregate"] += 1
+    launches["sgm_aggregate_wide"] += plan.wide
     return out
 
 

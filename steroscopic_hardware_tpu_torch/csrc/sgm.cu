@@ -46,15 +46,12 @@
 // It is bound by those memory transactions, so fewer lanes a column run
 // faster as long as the d values fit in registers (1080p d64 on 8 lanes:
 // 2.1 ms vertical). Past 8 lanes of 17 (D > 136) it needs 16 lanes, rows
-// of 2 columns, and loses to the staged kernel (d256: 27 ms against 8.5).
-// Staged kernel (D > 136): one warp per (direction, scan column) carries
-// the D path values, VPL = ceil(D / 32) contiguous d a lane, with the same
-// shuffles over the whole warp. A block takes AGG_TK = 8 adjacent columns
-// (16 warps: both directions), so each step's (D, 8) slab is read and
-// written coalesced along k through shared memory with two block barriers
-// a step; the next step's slab is prefetched into registers during the
-// recursion. It meets in the middle as above, and is latency-bound: S
-// dependent steps of barriers and shuffles per column.
+// of 2 columns, and loses (d256: 27 ms against the first port's 8.5).
+// Wide kernel (D > 136): a warp per scan column, both directions, 32
+// lanes of up to 9 d values; a block of 4 or 8 columns stages each step's
+// cost rows through a ring in shared memory several steps ahead and writes
+// its rows out from a second ring, the warps meeting at mbarriers only (no
+// block barrier per step); see its section below for the layout and bound.
 //
 // B4, sgm_transpose_add (replaces _transpose_add_pallas,
 // steroscopic_hardware_tpu/ops/sgm.py:415). out[d, a, b] = aT[d, b, a]
@@ -146,7 +143,7 @@ __device__ __forceinline__ float add_stored(float a, float b) { return __fadd_rn
 
 // -- B3 ------------------------------------------------------------------------
 
-// The largest D either kernel takes: the staged kernel's 32 lanes of 9 d
+// The largest D either kernel takes: the wide kernel's 32 lanes of 9 d
 // values. The lane-group kernel is compiled for 5, 9 and 17 d values a
 // lane and blocks of up to AGG_BLOCK_MAX threads.
 constexpr int AGG_DMAX = 288;
@@ -299,164 +296,534 @@ __global__ void __launch_bounds__(AGG_BLOCK_MAX)
   }
 }
 
-// Staged kernel (D > 8 lanes x 17). A warp per (direction, scan column)
-// holds the D path values, vpl contiguous d a lane; AGG_TK adjacent
-// columns a block, each step's (D, AGG_TK) slab read and written coalesced
-// along k through shared memory, the next slab prefetched into registers
-// during the recursion.
-constexpr int AGG_TK = 8;                  // scan columns per block
-constexpr int AGG_THREADS = 64 * AGG_TK;   // a warp per (direction, column)
-constexpr int AGG_VMAX = 9;                // d values per lane: D <= 288
-constexpr int AGG_EMAX = (AGG_DMAX * AGG_TK + AGG_THREADS - 1) / AGG_THREADS;
+// Wide-disparity kernel (D > 136; it takes any D <= 32 * VPL). A block owns
+// TK = 4, 8 or 16 adjacent scan columns, one warp per column (32 * TK
+// threads), and each warp runs its column's forward and backward chains
+// interleaved (two independent chains a warp), lane l holding d = l * VPL
+// .. + VPL - 1 of both (VPL 5, 7 or 9). Every thread is also a loader and
+// a storer of its share of the block's rows, so no warp is specialised;
+// warps meet only at mbarriers, one arrival a warp, never at a block
+// barrier:
+//  - the cost ring (ring slots): the slot of step i holds the block's cost
+//    rows of s = i (forward) and s = S - 1 - i (backward). Each thread
+//    copies its 4-byte pieces (element copies where the row pitch or base
+//    pointer is not a multiple of 4 bytes) by cp.async ring - 2 steps
+//    ahead, one group a step, and its warp arrives on full[slot] once the
+//    group holding the step has landed, the newer ones still in flight;
+//    empty[slot] completes when every warp has read it.
+//  - the out ring (WIDE_OUT_RING slots): each warp writes its column's
+//    path values there in the stored type; one step later (WIDE_LAG) the
+//    threads write the block's rows out in pieces of up to 16 bytes
+//    (ofull / oempty), adding the raw halves on a row's second visit.
+//  - the raw ring (WIDE_RAW_RING slots): a row's raw half, stored on its
+//    first visit, is read back by the thread that stored it (the same
+//    piece) by cp.async, a step or two ahead, or, one step after the
+//    crossing, copied there from the values being stored.
+// Shared memory keeps a row's 4-byte units apart: unit u of row d at word
+// u * (32 VPL + 32 / units) + d. A warp's 32 lanes read d values VPL (odd)
+// words apart, 32 different banks, so the per-lane reads of one column are
+// free of conflicts although a row holds TK columns, and the pad spreads
+// the units of the 32 / units rows one warp copies over the 32 banks.
+// min_d' L is one redux.sync min over the warp on order-preserving uint32
+// keys of the floats (min is exact, so the result is fminf's bit for bit);
+// the d +- 1 neighbours at a lane's ends are two shuffles.
+// Blocks are paced: a block starts step i only once every block has
+// finished step i - WIDE_PACE_LEAD (counters in global memory, zeroed by
+// the caller; only when the whole grid is resident). Unpaced, blocks on
+// SMs with more blocks fall behind, the blocks stop sharing the DRAM pages
+// and L2 lines of each step's rows, and a step took 2-3x as long.
+// Bound on the H100: memory, D * S * K elements read once and written once
+// (1080p d256 vertical bf16 -> bf16: 2.13 GB, 0.636 ms at 3.35 TB/s). The
+// kernel reads the cost once per direction and writes and reads back the
+// raw halves, 2.5x those bytes, and its rows of TK columns fill 4 to 64
+// bytes: a step of an SM is paced by its memory instructions (their
+// count, whatever their width, and one L1 wavefront per row a warp
+// instruction touches) and its issue (~11 float operations per d value
+// and direction), so wider rows and pieces move more columns a step, and
+// the plan takes the most columns whose shared memory fits and whose grid
+// still fills half the SMs.
+constexpr int WIDE_OUT_RING = 3;  // out ring slots
+constexpr int WIDE_RAW_RING = 3;  // raw-half slots
+constexpr int WIDE_LAG = 1;       // step i's rows are written out at iteration i + WIDE_LAG
+constexpr int WIDE_RING_MIN = 3, WIDE_RING_MAX = 6;
+constexpr int WIDE_THREADS = 512;  // the largest block: 16 columns
+// pacing: a block starts step i only once every block has finished step
+// i - WIDE_PACE_LEAD; block counts per step in a ring of WIDE_PACE_SLOTS
+// counters (> WIDE_PACE_LEAD, so a slot is reused only once all blocks
+// are past its previous step)
+constexpr int WIDE_PACE_LEAD = 4, WIDE_PACE_SLOTS = 8;
 
-__host__ __device__ inline int agg_row(int vpl) { return 32 * vpl + 1; }
+struct WideGeom {  // the shared-memory carve-up of one block, bytes
+  int uin, uout;   // 4-byte units of a row's TK columns: cost, out
+  int rin, rout;   // words from one unit's region to the next: 32 * VPL rows
+                   // d and a pad of 32 / units, so that the units of the
+                   // 32 / units rows one warp copies fall in 32 banks
+  int cost, outs, raw, bars, total;
+};
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(AGG_THREADS)
-    sgm_aggregate_staged_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out,
-                                int D, int S, int K, int vpl, float p1, float p2) {
-  // cs / os: [direction][column][row of agg_row(vpl) floats], the staged
-  // cost slab of this step and the path values to store
-  extern __shared__ float smem[];
-  const int R = agg_row(vpl);
-  float* cs = smem;
-  float* os = smem + 2 * AGG_TK * R;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dir = warp / AGG_TK, col = warp % AGG_TK;
-  const int k0 = blockIdx.x * AGG_TK;
-  const size_t SK = static_cast<size_t>(S) * K;
+__host__ __device__ inline WideGeom wide_geom(int vpl, int tk, int ein, int eout, int ring) {
+  WideGeom g;
+  g.uin = tk * ein / 4;
+  g.uout = tk * eout / 4;
+  g.rin = 32 * vpl + (g.uin > 1 ? 32 / g.uin : 0);
+  g.rout = 32 * vpl + (g.uout > 1 ? 32 / g.uout : 0);
+  g.cost = 2 * g.uin * g.rin * 4;  // a slot: both directions
+  g.outs = 2 * g.uout * g.rout * 4;
+  g.raw = 2 * 32 * vpl * tk * eout;  // a slot: both directions' rows, packed
+  g.bars = 16 * ((8 * (2 * ring + 2 * WIDE_OUT_RING) + 15) / 16);
+  g.total = g.bars + ring * g.cost + WIDE_OUT_RING * g.outs + WIDE_RAW_RING * g.raw;
+  return g;
+}
 
-  // element n of this thread: (d, c) = divmod(tid + n * AGG_THREADS, AGG_TK),
-  // the same at every step for the cost loads, the stores and read-backs
-  float cf[AGG_EMAX], cb[AGG_EMAX];  // cost at the forward / backward row
-  Tout rf[AGG_EMAX], rb[AGG_EMAX];   // raw partials the next step adds to
-#pragma unroll
-  for (int n = 0; n < AGG_EMAX; ++n) {
-    const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
-    const bool ok = d < D && k < K;
-    const size_t base = static_cast<size_t>(d) * SK + k;
-    cf[n] = ok ? widen(cost[base]) : 0.f;
-    cb[n] = ok ? widen(cost[base + static_cast<size_t>(S - 1) * K]) : 0.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival for the warp, after all its lanes' earlier accesses (the
+// __syncwarp orders them before lane 0's release): a warp's 32 arrivals
+// on one mbarrier would be 32 shared-memory atomics to one word
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) bar_arrive(bar);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// waits for this thread's cp.async groups but the newest n (0 .. 3)
+__device__ __forceinline__ void cp_async_wait_newer(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
   }
+}
 
-  float L[AGG_VMAX];
-  for (int i = 0; i < S; ++i) {
-    const int sf = i, sb = S - 1 - i;
+// a cp.async of W = 4, 8 or 16 bytes; the clobber keeps it after this
+// thread's earlier stores (a raw half is read back from where this thread
+// stored it)
+template <int W>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(W)
+                 : "memory");
+}
+
+// add_stored on each value of two 4-byte words of stored values
+template <typename T> __device__ __forceinline__ uint32_t add_words(uint32_t a, uint32_t b);
+template <> __device__ __forceinline__ uint32_t add_words<uint8_t>(uint32_t a, uint32_t b) {
+  return __vadd4(a, b);  // four uint8 adds, each modulo 256
+}
+template <> __device__ __forceinline__ uint32_t add_words<__nv_bfloat16>(uint32_t a, uint32_t b) {
+  const uint32_t lo = __bfloat16_as_ushort(add_stored(
+      __ushort_as_bfloat16(static_cast<unsigned short>(a)),
+      __ushort_as_bfloat16(static_cast<unsigned short>(b))));
+  const uint32_t hi = __bfloat16_as_ushort(add_stored(
+      __ushort_as_bfloat16(static_cast<unsigned short>(a >> 16)),
+      __ushort_as_bfloat16(static_cast<unsigned short>(b >> 16))));
+  return lo | (hi << 16);
+}
+template <> __device__ __forceinline__ uint32_t add_words<float>(uint32_t a, uint32_t b) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+}
+// a counter other blocks update, read from L2
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// waits until the phase of the given parity has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// min of a float over the warp: redux.sync on keys that order as the
+// floats do (non-negative floats: the sign bit set; negative: inverted)
+__device__ __forceinline__ float warp_min(float m) {
+  const uint32_t u = __float_as_uint(m);
+  const uint32_t k = __reduce_min_sync(FULL, u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u));
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// L(s - 1) -> L(s) for one lane's VPL d values (nv of them valid), in the
+// TPU kernel's order (as AggLane::recurse over the whole warp)
+template <int VPL, typename T>
+__device__ __forceinline__ void wide_recurse(float (&L)[VPL], const T (&c)[VPL], int lane,
+                                             int nv, float p1, float p2) {
+  float m = L[0];
 #pragma unroll
-    for (int n = 0; n < AGG_EMAX; ++n) {
-      const int e = tid + n * AGG_THREADS, d = e / AGG_TK, c = e % AGG_TK;
-      if (d < D) {
-        cs[c * R + d] = cf[n];
-        cs[(AGG_TK + c) * R + d] = cb[n];
+  for (int j = 1; j < VPL; ++j) m = fminf(m, L[j]);
+  m = warp_min(m);
+  float up_edge = __shfl_down_sync(FULL, L[0], 1);  // d = d0 + VPL
+  float dn = __shfl_up_sync(FULL, L[VPL - 1], 1);   // d = d0 - 1
+  if (lane == 31) up_edge = INF;
+  if (lane == 0) dn = INF;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const float up = j + 1 < VPL ? L[j + 1 < VPL ? j + 1 : j] : up_edge;
+    const float best =
+        fminf(fminf(L[j], __fadd_rn(fminf(up, dn), p1)), __fadd_rn(m, p2));
+    dn = L[j];
+    L[j] = j < nv ? __fsub_rn(__fadd_rn(widen(c[j]), best), m) : INF;
+  }
+}
+
+// a slot index and the parity of its phase, advanced one step at a time
+struct RingPos {
+  int q, ph;
+  __device__ __forceinline__ void next(int n) {
+    if (++q == n) {
+      q = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+template <typename Tin, typename Tout, int VPL>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    sgm_aggregate_wide_kernel(const Tin* __restrict__ cost, Tout* __restrict__ out, int D,
+                              int S, int K, int ring, int wc, int wo, float p1, float p2,
+                              int* __restrict__ pace) {
+  constexpr int EI = sizeof(Tin), EO = sizeof(Tout);
+  constexpr int NO = WIDE_OUT_RING, NR = WIDE_RAW_RING, LAG = WIDE_LAG;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NT = blockDim.x, tk = NT >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, col = tid >> 5;
+  const int pd = ring - 2;      // steps the cost is loaded ahead
+  const int pr = NR - 1 - LAG;  // iterations the raw halves are loaded ahead
+  const WideGeom g = wide_geom(VPL, tk, EI, EO, ring);
+  const uint32_t full0 = smem_addr(smem), empty0 = full0 + 8 * ring;
+  const uint32_t ofull0 = empty0 + 8 * ring, oempty0 = ofull0 + 8 * NO;
+  unsigned char* const ring0 = smem + g.bars;
+  unsigned char* const oring0 = ring0 + ring * g.cost;
+  unsigned char* const raw0 = oring0 + NO * g.outs;
+  const bool cost_async = wc == 4, raw_async = wo >= 4;
+  if (tid == 0) {  // every barrier takes one arrival a warp
+    for (int q = 0; q < ring; ++q) {
+      bar_init(full0 + 8 * q, tk);
+      bar_init(empty0 + 8 * q, tk);
+    }
+    for (int q = 0; q < NO; ++q) {
+      bar_init(ofull0 + 8 * q, tk);
+      bar_init(oempty0 + 8 * q, tk);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // once, before the scan: the barriers exist
+
+  // the block's columns k0 .. k0 + tk - 1; byte pitches of a row (s) and a
+  // plane (d); pieces: a row's tk columns cut in wc-byte (cost) or wo-byte
+  // (out) pieces, piece p of a direction is row d = p / ppr, byte x
+  const int k0 = blockIdx.x * tk;
+  const size_t pin = static_cast<size_t>(K) * EI, pout = static_cast<size_t>(K) * EO;
+  const size_t plane_in = pin * S, plane_out = pout * S;
+  const unsigned char* const cb = reinterpret_cast<const unsigned char*>(cost);
+  unsigned char* const ob = reinterpret_cast<unsigned char*>(out);
+  const int lim_in = min(tk, K - k0) * EI, lim_out = min(tk, K - k0) * EO;
+  const int ppr_c = tk * EI / wc, lg_c = __ffs(ppr_c) - 1, pc = D * ppr_c;
+  const int ppr_o = tk * EO / wo, lg_o = __ffs(ppr_o) - 1, po = D * ppr_o;
+  const int dir_in = g.uin * g.rin * 4, dir_out = g.uout * g.rout * 4;  // bwd half of a slot
+  const int raw_dir = D * tk * EO;  // bwd half of a raw slot: piece p at p * wo
+
+  // step e revisits its rows (the other direction was there at step
+  // S - 1 - e) when e > S - 1 - e; from two steps past the crossing its raw
+  // halves come back from memory, loaded by the thread that stored them at
+  // iteration rawit(e): pr iterations before they are stored, or the first
+  // iteration after the other direction's store
+  auto far = [&](int e) { return 2 * e - S + 1 >= 2; };
+  auto rawit = [&](int e) { return max(e + LAG - pr, S - e + LAG); };
+
+  auto issue_cost = [&](int c, RingPos pos) {
+    if (c >= ring) bar_wait(empty0 + 8 * pos.q, pos.ph ^ 1);
+    unsigned char* const slot = ring0 + pos.q * g.cost;
+    const size_t rf = static_cast<size_t>(c) * pin + static_cast<size_t>(k0) * EI;
+    const size_t rb = static_cast<size_t>(S - 1 - c) * pin + static_cast<size_t>(k0) * EI;
+    for (int p = tid; p < pc; p += NT) {
+      const int d = p >> lg_c, x = (p & (ppr_c - 1)) * wc;
+      if (x >= lim_in) continue;
+      const unsigned char* src = cb + static_cast<size_t>(d) * plane_in + x;
+      unsigned char* dst = slot + ((x >> 2) * g.rin + d) * 4 + (x & 3);
+      if (cost_async) {
+        copy_async<4>(dst, src + rf);
+        copy_async<4>(dst + dir_in, src + rb);
+      } else {
+        *reinterpret_cast<Tin*>(dst) = *reinterpret_cast<const Tin*>(src + rf);
+        *reinterpret_cast<Tin*>(dst + dir_in) = *reinterpret_cast<const Tin*>(src + rb);
       }
     }
-    __syncthreads();
-    if (i + 1 < S) {  // prefetch the next step's slab
-#pragma unroll
-      for (int n = 0; n < AGG_EMAX; ++n) {
-        const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
-        const bool ok = d < D && k < K;
-        const size_t base = static_cast<size_t>(d) * SK + k;
-        cf[n] = ok ? widen(cost[base + static_cast<size_t>(sf + 1) * K]) : 0.f;
-        cb[n] = ok ? widen(cost[base + static_cast<size_t>(sb - 1) * K]) : 0.f;
+  };
+
+  // the raw halves of step e: rows e (forward) and S - 1 - e (backward),
+  // stored at step S - 1 - e by this same thread (the same pieces), into
+  // raw slot e % NR, piece p of a direction at p * wo
+  auto issue_raw = [&](int e) {
+    unsigned char* const slot = raw0 + (e % NR) * g.raw;
+    const size_t rf = static_cast<size_t>(e) * pout + static_cast<size_t>(k0) * EO;
+    const size_t rb = static_cast<size_t>(S - 1 - e) * pout + static_cast<size_t>(k0) * EO;
+    for (int p = tid; p < po; p += NT) {
+      const int d = p >> lg_o, x = (p & (ppr_o - 1)) * wo;
+      if (x >= lim_out) continue;
+      const unsigned char* src = ob + static_cast<size_t>(d) * plane_out + x;
+      unsigned char* dst = slot + p * wo;
+      if (wo == 16) {
+        copy_async<16>(dst, src + rf);
+        copy_async<16>(dst + raw_dir, src + rb);
+      } else if (wo == 8) {
+        copy_async<8>(dst, src + rf);
+        copy_async<8>(dst + raw_dir, src + rb);
+      } else if (wo == 4) {
+        copy_async<4>(dst, src + rf);
+        copy_async<4>(dst + raw_dir, src + rb);
+      } else {
+        for (int w = 0; w < wo; w += EO) {
+          *reinterpret_cast<Tout*>(dst + w) = *reinterpret_cast<const Tout*>(src + w + rf);
+          *reinterpret_cast<Tout*>(dst + raw_dir + w) =
+              *reinterpret_cast<const Tout*>(src + w + rb);
+        }
       }
     }
+  };
 
-    // the recursion of this warp's (direction, column)
-    const float* cw = cs + (dir * AGG_TK + col) * R + lane * vpl;
+  // step e's rows out (at iteration i = e + LAG): the forward row e and the
+  // backward row S - 1 - e, their values or, on the second visit, their
+  // sums with the raw halves; one row, the sum, in the middle of an odd S.
+  // Just before the crossing (e + 1 == S - 1 - e) the values are also the
+  // next step's raw halves, swapped, and go to its raw slot directly.
+  auto store_step = [&](int e, int i) {
+    const int q = e % NO, sb = S - 1 - e;
+    bar_wait(ofull0 + 8 * q, (e / NO) & 1);
+    if (pace != nullptr && tid == 0)  // every warp of the block is past step e
+      atomicAdd(pace + e % WIDE_PACE_SLOTS, 1);
+    // the raw halves' group has landed (the groups committed after it, up
+    // to the last loader iteration, may stay in flight)
+    if (far(e) && raw_async) cp_async_wait_newer(min(i, S - 1) - rawit(e));
+    const unsigned char* const slot = oring0 + q * g.outs;
+    const unsigned char* const rs = raw0 + (e % NR) * g.raw;
+    unsigned char* const next = raw0 + ((e + 1) % NR) * g.raw;
+    const bool cross = e + 1 == sb;
+    const size_t rf = static_cast<size_t>(e) * pout + static_cast<size_t>(k0) * EO;
+    const size_t rb = static_cast<size_t>(sb) * pout + static_cast<size_t>(k0) * EO;
+    for (int p = tid; p < po; p += NT) {
+      const int d = p >> lg_o, x = (p & (ppr_o - 1)) * wo;
+      if (x >= lim_out) continue;
+      unsigned char* const row = ob + static_cast<size_t>(d) * plane_out + x;
+      const unsigned char* const src = slot + ((x >> 2) * g.rout + d) * 4 + (x & 3);
+      if (wo >= 4) {
+        const int n = wo >> 2;
+        uint32_t f[4] = {0, 0, 0, 0}, b[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (w < n) {
+            f[w] = *reinterpret_cast<const uint32_t*>(src + w * g.rout * 4);
+            b[w] = *reinterpret_cast<const uint32_t*>(src + dir_out + w * g.rout * 4);
+          }
+        if (e > sb) {  // the second visit: add the raw halves
+          const uint32_t* rhf = reinterpret_cast<const uint32_t*>(rs + p * wo);
+          const uint32_t* rhb = reinterpret_cast<const uint32_t*>(rs + raw_dir + p * wo);
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            if (w < n) {
+              f[w] = add_words<Tout>(rhf[w], f[w]);
+              b[w] = add_words<Tout>(rhb[w], b[w]);
+            }
+        } else if (e == sb) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            if (w < n) f[w] = add_words<Tout>(f[w], b[w]);
+        } else if (cross) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            if (w < n) {
+              reinterpret_cast<uint32_t*>(next + p * wo)[w] = b[w];
+              reinterpret_cast<uint32_t*>(next + raw_dir + p * wo)[w] = f[w];
+            }
+        }
+        if (n == 4) {
+          *reinterpret_cast<uint4*>(row + rf) = make_uint4(f[0], f[1], f[2], f[3]);
+          if (e != sb) *reinterpret_cast<uint4*>(row + rb) = make_uint4(b[0], b[1], b[2], b[3]);
+        } else if (n == 2) {
+          *reinterpret_cast<uint2*>(row + rf) = make_uint2(f[0], f[1]);
+          if (e != sb) *reinterpret_cast<uint2*>(row + rb) = make_uint2(b[0], b[1]);
+        } else {
+          *reinterpret_cast<uint32_t*>(row + rf) = f[0];
+          if (e != sb) *reinterpret_cast<uint32_t*>(row + rb) = b[0];
+        }
+      } else {
+        for (int w = 0; w < wo; w += EO) {
+          const int at = (((x + w) >> 2) - (x >> 2)) * g.rout * 4 + ((x + w) & 3) - (x & 3);
+          Tout f = *reinterpret_cast<const Tout*>(src + at);
+          Tout b = *reinterpret_cast<const Tout*>(src + dir_out + at);
+          if (e > sb) {
+            f = add_stored(*reinterpret_cast<const Tout*>(rs + p * wo + w), f);
+            b = add_stored(*reinterpret_cast<const Tout*>(rs + raw_dir + p * wo + w), b);
+          } else if (e == sb) {
+            f = add_stored(f, b);
+          } else if (cross) {
+            *reinterpret_cast<Tout*>(next + p * wo + w) = b;
+            *reinterpret_cast<Tout*>(next + raw_dir + p * wo + w) = f;
+          }
+          *reinterpret_cast<Tout*>(row + rf + w) = f;
+          if (e != sb) *reinterpret_cast<Tout*>(row + rb + w) = b;
+        }
+      }
+    }
+    warp_arrive(oempty0 + 8 * q);
+  };
+
+  // loader work of iteration i (i < 0: the prologue): the cost of step
+  // i + pd and the raw halves whose load falls on i (see rawit), one
+  // cp.async group; then the full arrival of step i + 1, once the group
+  // holding its cost has landed (the pd - 1 newer groups stay in flight)
+  RingPos lpos{0, 0};              // slot of step c = i + pd
+  int qn = (ring + 1 - pd) % ring;  // slot of step n = i + 1
+  int paced = 0;  // thread 0: step i - WIDE_PACE_LEAD's count, read an iteration ago
+  auto loader = [&](int i) {
+    const int c = i + pd, n = i + 1;
+    if (pace != nullptr && tid == 0) {
+      const int j = i - WIDE_PACE_LEAD;
+      if (j >= 0) {
+        const int want = (j / WIDE_PACE_SLOTS + 1) * static_cast<int>(gridDim.x);
+        while (paced < want) paced = load_relaxed(pace + j % WIDE_PACE_SLOTS);
+      }
+      if (j + 1 >= 0 && j + 1 < S) paced = load_relaxed(pace + (j + 1) % WIDE_PACE_SLOTS);
+    }
+    if (c < S) issue_cost(c, lpos);
+    const int e1 = i - LAG + pr, e2 = S + LAG - i;
+    if (e1 >= 0 && e1 < S && far(e1) && rawit(e1) == i) issue_raw(e1);
+    if (e2 < S && e2 != e1 && far(e2) && rawit(e2) == i) issue_raw(e2);
+    cp_async_commit();
+    if (c < S) lpos.next(ring);
+    if (n >= 0 && n < S) {
+      cp_async_wait_newer(i - (n - pd));
+      warp_arrive(full0 + 8 * qn);
+    }
+    qn = qn + 1 == ring ? 0 : qn + 1;
+  };
+
+  // this lane's d values in the consumer's view of a slot
+  const int nv = max(0, min(VPL, D - lane * VPL));
+  const int at_in = ((col * EI) >> 2) * g.rin * 4 + ((col * EI) & 3) + lane * VPL * 4;
+  const int at_out = ((col * EO) >> 2) * g.rout * 4 + ((col * EO) & 3) + lane * VPL * 4;
+  float Lf[VPL], Lb[VPL];
+  RingPos cpos{0, 0};
+  auto consume = [&](int i) {
+    bar_wait(full0 + 8 * cpos.q, cpos.ph);
+    const unsigned char* cs = ring0 + cpos.q * g.cost + at_in;
+    Tin cf[VPL], cbk[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      cf[j] = *reinterpret_cast<const Tin*>(cs + 4 * j);
+      cbk[j] = *reinterpret_cast<const Tin*>(cs + dir_in + 4 * j);
+    }
+    warp_arrive(empty0 + 8 * cpos.q);
+    cpos.next(ring);
     if (i == 0) {
 #pragma unroll
-      for (int j = 0; j < AGG_VMAX; ++j)
-        L[j] = (j < vpl && lane * vpl + j < D) ? cw[j] : INF;
+      for (int j = 0; j < VPL; ++j) {
+        Lf[j] = j < nv ? widen(cf[j]) : INF;
+        Lb[j] = j < nv ? widen(cbk[j]) : INF;
+      }
     } else {
-      float m = INF, last = INF;
-#pragma unroll
-      for (int j = 0; j < AGG_VMAX; ++j) {
-        m = fminf(m, L[j]);
-        if (j == vpl - 1) last = L[j];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, o));
-      float up_edge = __shfl_down_sync(FULL, L[0], 1);  // d = (lane+1)*vpl
-      float dn_edge = __shfl_up_sync(FULL, last, 1);    // d = lane*vpl - 1
-      if (lane == 31) up_edge = INF;
-      if (lane == 0) dn_edge = INF;
-      float nl[AGG_VMAX];
-#pragma unroll
-      for (int j = 0; j < AGG_VMAX; ++j) {
-        if (j < vpl && lane * vpl + j < D) {
-          const float up = (j == vpl - 1) ? up_edge : L[j + 1 < AGG_VMAX ? j + 1 : j];
-          const float dn = (j == 0) ? dn_edge : L[j > 0 ? j - 1 : 0];
-          const float best =
-              fminf(fminf(L[j], __fadd_rn(fminf(up, dn), p1)), __fadd_rn(m, p2));
-          nl[j] = __fsub_rn(__fadd_rn(cw[j], best), m);
-        } else {
-          nl[j] = INF;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < AGG_VMAX; ++j) L[j] = nl[j];
+      wide_recurse(Lf, cf, lane, nv, p1, p2);
+      wide_recurse(Lb, cbk, lane, nv, p1, p2);
     }
-    float* ow = os + (dir * AGG_TK + col) * R + lane * vpl;
+    const int oq = i % NO;
+    if (i >= NO) bar_wait(oempty0 + 8 * oq, ((i / NO) - 1) & 1);
+    unsigned char* const os = oring0 + oq * g.outs + at_out;
 #pragma unroll
-    for (int j = 0; j < AGG_VMAX; ++j)
-      if (j < vpl) ow[j] = L[j];
-    __syncthreads();
+    for (int j = 0; j < VPL; ++j) {
+      *reinterpret_cast<Tout*>(os + 4 * j) = narrow<Tout>(Lf[j]);
+      *reinterpret_cast<Tout*>(os + dir_out + 4 * j) = narrow<Tout>(Lb[j]);
+    }
+    warp_arrive(ofull0 + 8 * oq);
+  };
 
-    // store this step: raw where the other direction has not been yet, the
-    // sum where it has (or is, in the middle row of an odd S)
-#pragma unroll
-    for (int n = 0; n < AGG_EMAX; ++n) {
-      const int e = tid + n * AGG_THREADS, d = e / AGG_TK, c = e % AGG_TK;
-      const int k = k0 + c;
-      if (d < D && k < K) {
-        const Tout vf = narrow<Tout>(os[c * R + d]);
-        const Tout vb = narrow<Tout>(os[(AGG_TK + c) * R + d]);
-        const size_t base = static_cast<size_t>(d) * SK + k;
-        Tout* pf = out + base + static_cast<size_t>(sf) * K;
-        Tout* pb = out + base + static_cast<size_t>(sb) * K;
-        if (sf < sb) {
-          *pf = vf;
-          *pb = vb;
-        } else if (sf == sb) {
-          *pf = add_stored(vf, vb);
-        } else {
-          *pf = add_stored(rf[n], vf);
-          *pb = add_stored(rb[n], vb);
-        }
-      }
-    }
-    // read back the raw partials the next step adds to: this thread stored
-    // them at step S - 2 - i, at or before this one
-    if (i + 1 < S && i + 1 > sb - 1) {
-#pragma unroll
-      for (int n = 0; n < AGG_EMAX; ++n) {
-        const int e = tid + n * AGG_THREADS, d = e / AGG_TK, k = k0 + e % AGG_TK;
-        if (d < D && k < K) {
-          const size_t base = static_cast<size_t>(d) * SK + k;
-          rf[n] = out[base + static_cast<size_t>(sf + 1) * K];
-          rb[n] = out[base + static_cast<size_t>(sb - 1) * K];
-        }
-      }
-    }
+  for (int i = -pd; i < 0; ++i) loader(i);
+  for (int i = 0; i < S; ++i) {
+    loader(i);
+    consume(i);
+    if (i >= LAG) store_step(i - LAG, i);
   }
+  for (int i = max(S, LAG); i < S + LAG; ++i) store_step(i - LAG, i);
 }
 
 // A launch plan (see sgm_aggregate below); checked before it is launched.
 struct AggPlan {
-  int staged, G, dpt, block, grid;
+  int wide, G, dpt, block, grid, ring;
 };
 
+// pace: WIDE_PACE_SLOTS zeroed counters, or null for no pacing; pacing is
+// used only when the whole grid is resident at once (a block waits for
+// every other block)
+template <typename Tin, typename Tout, int VPL>
+cudaError_t launch_wide(const AggPlan& p, const Tin* cost, Tout* out, int D, int S, int K,
+                        int wc, int wo, float p1, float p2, int* pace, cudaStream_t stream) {
+  const auto kernel = sgm_aggregate_wide_kernel<Tin, Tout, VPL>;
+  const WideGeom g = wide_geom(VPL, p.block / 32, sizeof(Tin), sizeof(Tout), p.ring);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       g.total);
+  if (e != cudaSuccess) return e;
+  if (pace != nullptr) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.block, g.total)) !=
+            cudaSuccess)
+      return e;
+    if (static_cast<long long>(per_sm) * sms < p.grid) pace = nullptr;
+  }
+  kernel<<<p.grid, p.block, g.total, stream>>>(cost, out, D, S, K, p.ring, wc, wo, p1, p2,
+                                                pace);
+  return cudaGetLastError();
+}
+
 template <typename Tin, typename Tout>
-cudaError_t launch_aggregate(const AggPlan& p, const void* cost, void* out, int D,
-                             int S, int K, float p1, float p2, cudaStream_t stream) {
+cudaError_t launch_aggregate(const AggPlan& p, const void* cost, void* out, int D, int S,
+                             int K, float p1, float p2, int* pace, cudaStream_t stream) {
   const Tin* c = static_cast<const Tin*>(cost);
   Tout* o = static_cast<Tout*>(out);
-  if (p.staged) {
-    const size_t smem = sizeof(float) * 4 * AGG_TK * agg_row(p.dpt);
-    sgm_aggregate_staged_kernel<Tin, Tout>
-        <<<p.grid, AGG_THREADS, smem, stream>>>(c, o, D, S, K, p.dpt, p1, p2);
-    return cudaGetLastError();
+  if (p.wide) {
+    // access widths: 4-byte cost pieces where the row pitch and the base
+    // allow, else one element; out pieces the widest of 16 .. 1 bytes
+    // within a row's tk columns that divides the pitch and the base
+    const uintptr_t ca = reinterpret_cast<uintptr_t>(cost), oa = reinterpret_cast<uintptr_t>(out);
+    const int wc = (static_cast<long long>(K) * sizeof(Tin)) % 4 == 0 && ca % 4 == 0
+                       ? 4 : static_cast<int>(sizeof(Tin));
+    int wo = p.block / 32 * static_cast<int>(sizeof(Tout));  // out: up to 16 bytes
+    if (wo > 16) wo = 16;
+    while (wo > static_cast<int>(sizeof(Tout)) &&
+           ((static_cast<long long>(K) * sizeof(Tout)) % wo != 0 || oa % wo != 0))
+      wo /= 2;
+    switch (p.dpt) {
+      case 5: return launch_wide<Tin, Tout, 5>(p, c, o, D, S, K, wc, wo, p1, p2, pace, stream);
+      case 7: return launch_wide<Tin, Tout, 7>(p, c, o, D, S, K, wc, wo, p1, p2, pace, stream);
+      case 9: return launch_wide<Tin, Tout, 9>(p, c, o, D, S, K, wc, wo, p1, p2, pace, stream);
+    }
+    return cudaErrorInvalidValue;
   }
   switch (p.dpt) {
     case 5:
@@ -478,14 +845,16 @@ cudaError_t launch_aggregate(const AggPlan& p, const void* cost, void* out, int 
 
 template <typename Tin>
 cudaError_t aggregate_out(int out_type, const AggPlan& p, const void* cost, void* out,
-                          int D, int S, int K, float p1, float p2, cudaStream_t stream) {
+                          int D, int S, int K, float p1, float p2, int* pace,
+                          cudaStream_t stream) {
   switch (out_type) {
     case T_U8:
-      return launch_aggregate<Tin, uint8_t>(p, cost, out, D, S, K, p1, p2, stream);
+      return launch_aggregate<Tin, uint8_t>(p, cost, out, D, S, K, p1, p2, pace, stream);
     case T_BF16:
-      return launch_aggregate<Tin, __nv_bfloat16>(p, cost, out, D, S, K, p1, p2, stream);
+      return launch_aggregate<Tin, __nv_bfloat16>(p, cost, out, D, S, K, p1, p2, pace,
+                                                  stream);
     case T_F32:
-      return launch_aggregate<Tin, float>(p, cost, out, D, S, K, p1, p2, stream);
+      return launch_aggregate<Tin, float>(p, cost, out, D, S, K, p1, p2, pace, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -526,15 +895,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
                  "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage the tile of one plane: rows b0 .. b0 + ROWS - 1 of a volume from
@@ -978,34 +1338,45 @@ extern "C" {
 
 // out (D, S, K) = forward + backward aggregation of cost (D, S, K) along S,
 // both contiguous; in_type / out_type: 0 uint8, 1 bfloat16, 2 float32. The
-// launch plan: staged 0, the lane-group kernel with G lanes (a power of two
+// launch plan: wide 0, the lane-group kernel with G lanes (a power of two
 // <= 32) per scan column, dpt (5, 9 or 17) d values per lane, G * dpt >= D,
 // block threads (a multiple of 32 up to AGG_BLOCK_MAX), grid blocks
-// (exactly enough for K columns), on a volume of fewer than 2^32 elements;
-// or staged 1, the staged kernel with G 32, dpt ceil(D / 32), block
-// AGG_THREADS and grid ceil(K / AGG_TK). Any other plan is refused.
+// (exactly enough for K columns), ring 0, on a volume of fewer than 2^32
+// elements; or wide 1, the wide kernel with G 32, dpt 5, 7 or 9 with
+// 32 * dpt >= D, block 128, 256 or 512 (4, 8 or 16 columns), grid exactly enough
+// for K columns and ring WIDE_RING_MIN .. WIDE_RING_MAX slots whose shared
+// memory fits a block. Any other plan is refused. pace: WIDE_PACE_SLOTS
+// zeroed int32 counters the wide kernel paces its blocks with, or null.
 int sgm_aggregate(const void* cost, void* out, int D, int S, int K, int in_type,
-                  int out_type, float p1, float p2, int staged, int G, int dpt,
-                  int block, int grid, void* stream) {
+                  int out_type, float p1, float p2, int wide, int G, int dpt,
+                  int block, int grid, int ring, void* pace, void* stream) {
   if (D < 1 || D > AGG_DMAX || S < 1 || K < 1) return cudaErrorInvalidValue;
+  const int ei = in_type == T_U8 ? 1 : in_type == T_BF16 ? 2 : in_type == T_F32 ? 4 : 0;
+  const int eo = out_type == T_U8 ? 1 : out_type == T_BF16 ? 2 : out_type == T_F32 ? 4 : 0;
+  if (ei == 0 || eo == 0) return cudaErrorInvalidValue;
   bool ok;
-  if (staged) {
-    ok = G == 32 && dpt == (D + 31) / 32 && block == AGG_THREADS &&
-         grid == (K + AGG_TK - 1) / AGG_TK;
+  if (wide) {
+    const int tk = block / 32;
+    ok = G == 32 && (dpt == 5 || dpt == 7 || dpt == 9) && 32 * dpt >= D &&
+         (tk == 4 || tk == 8 || tk == 16) && block == 32 * tk &&
+         grid == (K + tk - 1) / tk &&
+         ring >= WIDE_RING_MIN && ring <= WIDE_RING_MAX &&
+         wide_geom(dpt, tk, ei, eo, ring).total <= 232448;
   } else {
     ok = G >= 1 && G <= 32 && (G & (G - 1)) == 0 && G * dpt >= D && block >= 32 &&
          block <= AGG_BLOCK_MAX && block % 32 == 0 &&
-         grid == (K + block / G - 1) / (block / G) &&
+         grid == (K + block / G - 1) / (block / G) && ring == 0 &&
          static_cast<unsigned long long>(D) * S * K <= 0xffffffffull;
   }
   if (!ok) return cudaErrorInvalidValue;
-  const AggPlan p{staged, G, dpt, block, grid};
+  const AggPlan p{wide, G, dpt, block, grid, ring};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* const pc = static_cast<int*>(pace);
   switch (in_type) {
-    case T_U8: return aggregate_out<uint8_t>(out_type, p, cost, out, D, S, K, p1, p2, s);
+    case T_U8: return aggregate_out<uint8_t>(out_type, p, cost, out, D, S, K, p1, p2, pc, s);
     case T_BF16:
-      return aggregate_out<__nv_bfloat16>(out_type, p, cost, out, D, S, K, p1, p2, s);
-    case T_F32: return aggregate_out<float>(out_type, p, cost, out, D, S, K, p1, p2, s);
+      return aggregate_out<__nv_bfloat16>(out_type, p, cost, out, D, S, K, p1, p2, pc, s);
+    case T_F32: return aggregate_out<float>(out_type, p, cost, out, D, S, K, p1, p2, pc, s);
   }
   return cudaErrorInvalidValue;
 }

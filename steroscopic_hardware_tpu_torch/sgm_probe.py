@@ -11,12 +11,15 @@ alone (``--epilogue``).
 The first line is the card (``nvidia-smi`` name and power limit). Then one
 JSON line per measurement; with ``--out`` all of them also go there as a
 JSON list. Times are CUDA events, the median of 20 after 3 warm-ups. B3
-runs on a seeded random cost volume in the served chain's four tiers: the
-vertical pass (D, H, W) from bfloat16, the horizontal one (D, W, H) from
-uint8, each stored in bfloat16 (the served chain) or uint8 (the fused
-one). ``--plans`` checks every plan's output against the wrapper's before
-timing it. ``--profile`` runs ``models.blockmatch.sgm_one`` (without and
-with the LR check; with ``--fused`` also the same frame through
+runs on a seeded random cost volume in the served chain's storage tiers:
+the vertical pass (D, H, W) from bfloat16, the horizontal one (D, W, H)
+from uint8, each stored in bfloat16 (the served chain), uint8 (the fused
+one) or float32 (the tier of fractional penalties). ``--plans`` times B3
+under every plan of the wide kernel (each columns a block and ring depth
+whose shared memory fits) and, up to D = 136, of the lane-group kernel,
+and checks every plan's output against the wrapper's before timing it.
+``--profile`` runs ``models.blockmatch.sgm_one`` (without and with the
+LR check; with ``--fused`` also the same frame through
 ``sgm_disparity(epilogue="fused")``, B5's chain) on a seeded textured
 pair, 10 frames after 3 warm-ups, under ``torch.profiler``: per kernel its
 device time and launches per frame, and per frame the sum of all kernels'
@@ -78,11 +81,13 @@ def _tiers(maxd):
     cost_t = torch.from_numpy(
         rng.integers(0, 25, (D, W, H), dtype=np.uint8)).cuda()
     cost = sgm.transpose_add(cost_t, out_dtype=torch.bfloat16)
-    u8, bf16 = torch.uint8, torch.bfloat16
+    u8, bf16, f32 = torch.uint8, torch.bfloat16, torch.float32
     return [("vertical bf16->bf16", cost, bf16),
             ("horizontal u8->bf16", cost_t, bf16),
             ("vertical bf16->u8", cost, u8),
-            ("horizontal u8->u8", cost_t, u8)]
+            ("horizontal u8->u8", cost_t, u8),
+            ("vertical bf16->f32", cost, f32),
+            ("horizontal u8->f32", cost_t, f32)]
 
 
 def probe_wrapper(maxd):
@@ -109,20 +114,33 @@ def probe_plans(maxd):
         out = torch.empty_like(want)
         _, S, K = c.shape
         stream = torch.cuda.current_stream().cuda_stream
-        plans = [_kernels.AggregatePlan(
-            1, 32, -(-D // 32), _kernels.STAGED_BLOCK,
-            -(-K // _kernels.STAGED_COLUMNS))]
+        plans = []
+        dpt = min(n for n in _kernels.WIDE_DPTS if 32 * n >= D)
+        for cols in _kernels.WIDE_COLUMNS:
+            for ring in _kernels.WIDE_RINGS:
+                if _kernels.wide_smem(dpt, cols, c.element_size(),
+                                      want.element_size(),
+                                      ring) <= _kernels.SMEM_LIMIT:
+                    plans.append(_kernels.AggregatePlan(
+                        1, 32, dpt, 32 * cols, -(-K // cols), ring))
         for lanes in (1, 2, 4, 8, 16, 32):
             fits = [n for n in _kernels.AGG_DPTS if lanes * n >= D]
-            for block in (32, 64, 128, 256) if fits else ():
+            for block in ((32, 64, 128, 256)
+                          if fits and D <= _kernels.AGG_LANES_MAX_D else ()):
                 plans.append(_kernels.AggregatePlan(
-                    0, lanes, min(fits), block, -(-K // (block // lanes))))
+                    0, lanes, min(fits), block, -(-K // (block // lanes)),
+                    0))
+        pace = torch.zeros(_kernels.WIDE_PACE_SLOTS, dtype=torch.int32,
+                           device=c.device)
         for plan in plans:
             def run(plan=plan):
+                # the wrapper's pacing counters, zeroed for each launch
+                pace.zero_()
                 err = lib.sgm_aggregate(
                     c.data_ptr(), out.data_ptr(), D, S, K,
                     _kernels._TYPE_CODES[c.dtype],
-                    _kernels._TYPE_CODES[outd], 1.0, 8.0, *plan, stream)
+                    _kernels._TYPE_CODES[outd], 1.0, 8.0, *plan,
+                    pace.data_ptr(), stream)
                 if err:
                     raise RuntimeError(f"plan {plan} refused ({err})")
 
@@ -132,7 +150,8 @@ def probe_plans(maxd):
             rows.append({
                 "kernel": "sgm_aggregate", "stage": what, "maxd": maxd,
                 "plan": plan._asdict(),
-                "chosen": plan == _kernels.sgm_aggregate_plan(D, S, K, sms),
+                "chosen": plan == _kernels.sgm_aggregate_plan(
+                    D, S, K, sms, c.element_size(), want.element_size()),
                 "equal": bool(torch.equal(out, want)), "ms": time_ms(run)})
     return rows
 

@@ -28,7 +28,7 @@ SAD kernel's launch alone; SGM's chain), null on the CPU.
 
 On the card a SAD ``compute`` is one launch of B1 (``sad_wta``), the LR
 check one of B2 (``sad_lr``); an SGM frame runs the census costs, B4
-(``sgm_transpose_add``), B3 (``sgm_aggregate``) twice, its staged kernel
+(``sgm_transpose_add``), B3 (``sgm_aggregate``) twice, its wide kernel
 above D 136, and the argmin.
 """
 

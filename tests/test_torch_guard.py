@@ -416,8 +416,8 @@ def test_serve_path_launches_the_kernels(cuda):
     assert fut.device_ms() > 0
     got_lr = m.compute_serve_async(pairs, lr=True, colorize_dev=False).result()
     assert _kernels.launches == {"sad_wta": 1, "sad_lr": 1,
-                                 "sgm_aggregate": 0, "sgm_transpose_add": 0,
-                                 "sgm_epilogue": 0}
+                                 "sgm_aggregate": 0, "sgm_aggregate_wide": 0,
+                                 "sgm_transpose_add": 0, "sgm_epilogue": 0}
     want = sad.disparity_plain(L, R, block_size=16, max_disparity=64)
     assert np.array_equal(got, want.numpy())
     assert got_lr.shape == got.shape
@@ -556,14 +556,17 @@ def _volume(seed, shape, high=25):
 # (D, S, K): the launch plan's edges (D at each boundary of the lanes per
 # column and of the compiled chunk sizes; S of 1, 2 and odd, for the middle
 # row; K ragged against a warp's and a block's columns) beside volumes of
-# the served shapes
+# the served shapes; the wide kernel (D > 136) also at S 1, 2, 4, 8 and 16
+# (its raw halves from the out ring, at the step they are stored, and
+# ahead) with K ragged against its blocks of 4 and 8 columns
 AGGREGATE_SHAPES = [
     (17, 37, 53), (17, 53, 37), (257, 40, 300), (65, 1080, 64),
     (1, 7, 33), (2, 2, 45), (20, 1, 40), (21, 3, 31), (33, 2, 65),
     (36, 5, 17), (37, 9, 33), (40, 4, 31), (41, 11, 50), (65, 1, 100),
     (72, 3, 21), (73, 6, 5), (129, 7, 13), (136, 2, 7), (137, 13, 9),
     (144, 2, 3), (145, 9, 11), (257, 5, 6), (272, 3, 35), (273, 4, 3),
-    (288, 11, 19)]
+    (288, 11, 19), (145, 1, 41), (257, 1, 7), (200, 2, 1), (161, 8, 1081),
+    (225, 16, 479), (288, 4, 38)]
 
 
 @pytest.mark.gpu
@@ -858,8 +861,8 @@ def test_sgm_serve_path_launches_the_kernels(cuda):
     got = m.compute_serve_async(pairs, colorize_dev=False).result()
     # per frame: B4 on the cost, B3 twice, B4 on the aggregates
     assert _kernels.launches == {"sad_wta": 0, "sad_lr": 0,
-                                 "sgm_aggregate": 4, "sgm_transpose_add": 4,
-                                 "sgm_epilogue": 0}
+                                 "sgm_aggregate": 4, "sgm_aggregate_wide": 0,
+                                 "sgm_transpose_add": 4, "sgm_epilogue": 0}
     cpu = SGMMatcher(device="cpu")
     assert np.array_equal(
         got, cpu.compute_serve_async(pairs, colorize_dev=False).result())
@@ -885,21 +888,25 @@ def test_sgm_launchers_reject_bad_inputs(cuda):
     out = torch.empty_like(vol)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     lanes = k.sgm_aggregate_plan(17, 8, 8, sms=132)
-    staged = k.sgm_aggregate_plan(200, 8, 8, sms=132)
+    wide = k.sgm_aggregate_plan(200, 8, 8, sms=132)
+    assert wide.wide and wide.dpt == 7 and wide.block == 128
     for D, plan in ((17, lanes._replace(lanes=3)), (17, lanes._replace(dpt=11)),
                     (17, lanes._replace(lanes=1, dpt=9)),
                     (17, lanes._replace(block=96 + 256)),
                     (17, lanes._replace(grid=lanes.grid + 1)),
-                    (200, staged._replace(dpt=8)),
-                    (200, staged._replace(block=256)),
-                    (200, staged._replace(grid=staged.grid + 1)),
-                    (289, k.AggregatePlan(1, 32, 10, 512, 1))):
+                    (17, lanes._replace(ring=4)),
+                    (200, wide._replace(dpt=8)), (200, wide._replace(dpt=5)),
+                    (200, wide._replace(block=1024)),
+                    (200, wide._replace(block=192)),
+                    (200, wide._replace(grid=wide.grid + 1)),
+                    (200, wide._replace(ring=2)), (200, wide._replace(ring=7)),
+                    (289, k.AggregatePlan(1, 32, 10, 256, 1, 4))):
         assert lib.sgm_aggregate(vol.data_ptr(), out.data_ptr(), D, 8, 8, 0,
-                                 0, 1.0, 8.0, *plan, stream) != 0, plan
-    for D, plan in ((17, lanes), (17, k.AggregatePlan(1, 32, 1, 512, 1)),
-                    (200, staged)):
+                                 0, 1.0, 8.0, *plan, None, stream) != 0, plan
+    for D, plan in ((17, lanes), (17, k.AggregatePlan(1, 32, 5, 256, 1, 4)),
+                    (200, wide), (200, wide._replace(ring=6))):
         assert lib.sgm_aggregate(vol.data_ptr(), out.data_ptr(), D, 8, 8, 0,
-                                 0, 1.0, 8.0, *plan, stream) == 0, plan
+                                 0, 1.0, 8.0, *plan, None, stream) == 0, plan
     with pytest.raises(ValueError, match="b must be"):
         k.sgm_transpose_add(cost, cost.to(torch.bfloat16), torch.float32)
     with pytest.raises(ValueError, match="agg_ht must be"):
@@ -1088,7 +1095,7 @@ def test_sweep_configuration_on_the_card(cuda, monkeypatch, engine, block,
     """One configuration of ``tools.run_sweep`` on the card, with the LR
     check: the map equals the plain version (SAD: one sad_wta launch a
     compute and one sad_lr for the check, the checked map and mask equal
-    the plain ones; SGM: the plain chain, B3's staged kernel above D
+    the plain ones; SGM: the plain chain, B3's wide kernel above D
     136), and the line carries the kernel's CUDA-event time."""
     from steroscopic_hardware_tpu_torch.ops import lr_check
     from steroscopic_hardware_tpu_torch.tools import run_sweep

@@ -9,6 +9,8 @@ order of XLA's fused arithmetic may differ from torch's by one ulp; every
 run here has in fact matched exactly.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,6 +79,23 @@ def test_aggregate_plain_equals_pallas(P, out_dtype, in_dtype):
     assert np.array_equal(got.float().numpy(), _np(want))
 
 
+@pytest.mark.parametrize("P,out_dtype", [
+    ((1.0, 8.0), torch.uint8), ((2.0, 40.0), torch.bfloat16),
+    ((0.7, 5.3), torch.float32)])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.bfloat16])
+@pytest.mark.parametrize("D", [137, 145, 257])
+def test_aggregate_wide_d_equals_pallas(D, P, out_dtype, in_dtype):
+    """The D range of B3's wide kernel (D > 136), every storage tier,
+    against the Pallas kernel (interpret), bit for bit."""
+    cost = torch.from_numpy(_cost(D, (D, 5, 7))).to(in_dtype)
+    want = jax_sgm._aggregate_axis_pallas(
+        jnp.asarray(cost.float().numpy()).astype(JNP[in_dtype]), *P, axis=1,
+        interpret=True, out_dtype=JNP[out_dtype])
+    got = sgm.aggregate_axis(cost, *P, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == cost.shape
+    assert np.array_equal(got.float().numpy(), _np(want))
+
+
 def test_aggregate_single_row_and_tiny_d():
     """S = 1 (fwd + bwd of the cost itself) and a 2-deep d axis."""
     for shape in [(5, 1, 9), (2, 7, 3)]:
@@ -91,25 +110,49 @@ def test_aggregate_single_row_and_tiny_d():
 def test_sgm_aggregate_plan(D):
     """B3's launch plan: the lanes of a column (a power of two dividing 32)
     cover [0, D) exactly once in chunks of a size its kernel takes, and the
-    grid holds every column with no block left idle; the staged kernel
-    takes exactly the D that 8 lanes of the lane-group kernel cannot."""
-    for S, K in ((1, 1), (2, 33), (1080, 1920)):
-        plan = _kernels.sgm_aggregate_plan(D, S, K, sms=132)
+    grid holds every column with no block left idle; the wide kernel takes
+    exactly the D that 8 lanes of the lane-group kernel cannot, with a
+    warp per column, the smallest chunk that covers D, and a ring whose
+    shared memory fits a block in the storage tier it was planned for."""
+    for (S, K), (ein, eout) in itertools.product(
+            ((1, 1), (2, 33), (1080, 1920), (1920, 1080)),
+            itertools.product((1, 2, 4), repeat=2)):
+        plan = _kernels.sgm_aggregate_plan(D, S, K, 132, ein, eout)
         assert 32 % plan.lanes == 0
         chunks = [range(g * plan.dpt, min(D, (g + 1) * plan.dpt))
                   for g in range(plan.lanes)]
         assert sorted(d for c in chunks for d in c) == list(range(D))
-        assert plan.staged == (D > _kernels.AGG_LANES_MAX_D)
-        if plan.staged:
-            assert plan.lanes == 32 and plan.dpt == -(-D // 32) <= 9
-            assert plan.block == _kernels.STAGED_BLOCK
-            cols = _kernels.STAGED_COLUMNS
+        assert plan.wide == (D > _kernels.AGG_LANES_MAX_D)
+        if plan.wide:
+            assert plan.lanes == 32
+            assert plan.dpt == min(n for n in _kernels.WIDE_DPTS
+                                   if 32 * n >= D)
+            cols = plan.block // 32
+            assert cols in _kernels.WIDE_COLUMNS
+            assert plan.ring in _kernels.WIDE_RINGS
+            assert _kernels.wide_smem(plan.dpt, cols, ein, eout,
+                                      plan.ring) <= _kernels.SMEM_LIMIT
         else:
             assert plan.lanes <= 8 and plan.dpt in _kernels.AGG_DPTS
             assert plan.block % 32 == 0
             assert plan.block <= _kernels.AGG_BLOCK_MAX
+            assert plan.ring == 0
             cols = plan.block // plan.lanes
         assert (plan.grid - 1) * cols < K <= plan.grid * cols
+
+
+def test_sgm_aggregate_plan_wide_columns():
+    """The wide kernel's columns a block: the most (16, 8, 4) whose shared
+    memory fits the tier and whose grid fills half the SMs: 16 for 1080p's
+    1920 and 1080 columns in one- and two-byte tiers, 8 for float32
+    stores, and fewer for narrow frames (VGA's 640 and 480 columns)."""
+    def cols(K, ein=2, eout=2):
+        return _kernels.sgm_aggregate_plan(257, 7, K, 132, ein,
+                                           eout).block // 32
+    assert [cols(K) for K in (1920, 1080, 640, 480, 8, 1)] == [16, 16, 8, 4,
+                                                              4, 4]
+    assert [cols(1080, 1, 1), cols(1920, 2, 4), cols(1920, 4, 4)] == [16, 8,
+                                                                      8]
 
 
 def test_sgm_aggregate_plan_refuses_d289():
